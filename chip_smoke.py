@@ -11,11 +11,16 @@ Phases (each fails loudly; any failure exits non-zero):
 2. build: every hand-written CUDA kernel of the port, with ``nvcc``, from
    the sources in this checkout, one ``nvcc`` per source in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the slice's shapes, with its time, the plain version's, one library
-   call's as a yardstick (never used by the port) and its bound;
-4. slice: two FeDepth rounds (``RoundEngine`` over ``build_lm_context``)
-   on qwen2-7b at every published width, depth cut to 4 layers, random
-   weights from a seed; the kernels' launch counts must be above zero.
+   the shapes its path gives it and on edge cases, with its time, the
+   plain version's, one library call's as a yardstick (never used by the
+   port; none computes either scan) and its bound;
+4. paths: two FeDepth rounds (``RoundEngine`` over ``build_lm_context``)
+   on each ported family at every published width, random weights from a
+   seed: qwen2-7b (depth cut to 4 layers), mamba2-370m (all 48 layers,
+   tied head) and rwkv6-7b (depth cut to 4 layers).  Before each, a
+   reduced model's loss on the card is held against the CPU's.  The
+   kernels' launch counts, reset just before each path and read just
+   after, must be above zero for every kernel on that path.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers, then ``{"ok": true, "device": ...}`` as the last line.
@@ -40,6 +45,9 @@ PEAK_BYTES_PER_S = 3.35e12
 
 ATTN_ATOL = 1e-4     # max abs error of K2 vs its plain version
 CE_RTOL = 1e-5       # relative error of K1's loss vs its plain version
+SCAN_ATOL = SCAN_RTOL = 1e-4   # K3 / K4 vs plain: |a - b| <= atol + rtol|b|
+F64_RATIO = 2.0      # K3 at large dt: its distance from float64 vs plain's
+LOSS_RTOL = 1e-4     # a reduced model's loss, card vs CPU
 
 
 def log(msg: str) -> None:
@@ -150,6 +158,8 @@ def check_ce(gen, case: dict, timed: bool):
     N, D, V = case["N"], case["D"], case["V"]
     h = torch.randn(1, N, D, device="cuda", generator=gen)
     w = torch.randn(D, V, device="cuda", generator=gen) / math.sqrt(D)
+    if case.get("tied"):    # the head is embed.T: a (V, D) table read in place
+        w = w.T.contiguous().T
     labels = torch.randint(0, V, (1, N), device="cuda", generator=gen)
     labels[:, ::case["ignore_every"]] = -100
     loss, n = chunked_cross_entropy(h, w, labels)
@@ -182,9 +192,135 @@ def check_ce(gen, case: dict, timed: bool):
                 bound_by=by, library_ms=lib_ms)
 
 
+def _fwd_bwd_ms(op, args) -> float:
+    """ms of one differentiable scan (``ops.mamba2`` / ``ops.rwkv6``):
+    the kernel's forward, then the plain chunked-recompute backward into
+    every input, as a training step runs it."""
+    import torch
+    leaves = [a.clone().requires_grad_() for a in args]
+
+    def step():
+        y, s = op(*leaves)
+        torch.autograd.grad((y.sum(), s.sum()), leaves)
+
+    return time_ms(step, 3, warmup=1)
+
+
+def _max_err(outs, refs) -> float:
+    return max(float((a - b).abs().max()) for a, b in zip(outs, refs))
+
+
+def check_scan(what: str, kernel, plain, op, case: dict, args, flops: float,
+               nbytes: float, timed: bool):
+    """A scan kernel against its plain version on ``args``: every element
+    of (y, final state) within SCAN_ATOL + SCAN_RTOL * |plain|.  Timed,
+    it also returns the kernel line's numbers and logs the differentiable
+    op's forward + backward."""
+    import torch
+    outs = kernel(*args)
+    refs = plain(*args)
+    torch.cuda.synchronize()
+    err = _max_err(outs, refs)
+    ok = math.isfinite(err) and all(
+        bool(((a - b).abs() <= SCAN_ATOL + SCAN_RTOL * b.abs()).all())
+        for a, b in zip(outs, refs))
+    log(f"  {what} {case['name']}: max_abs_err {err:.3e} (atol "
+        f"{SCAN_ATOL:g} + rtol {SCAN_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} {case['name']}: {err}")
+    if not timed:
+        return None
+    ms = time_ms(lambda: kernel(*args), 20)
+    plain_ms = time_ms(lambda: plain(*args), 3, warmup=1)
+    train_ms = _fwd_bwd_ms(op, args)
+    bms, by = bound_ms(flops, nbytes)
+    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  library none  "
+        f"bound {bms:.4f} ms ({by});  ops forward + backward "
+        f"{train_ms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def check_against_f64(what: str, kernel, plain, case: dict, args) -> None:
+    """Where fp32 rounding alone exceeds the scan tolerance: the kernel
+    must sit no farther than F64_RATIO times the fp32 plain version's
+    distance from the plain version run in float64."""
+    exact = plain(*(a.double() for a in args))
+    e_kernel = _max_err([t.double() for t in kernel(*args)], exact)
+    e_plain = _max_err([t.double() for t in plain(*args)], exact)
+    scale = max(float(t.abs().max()) for t in exact)
+    ok = math.isfinite(e_kernel) and e_kernel <= F64_RATIO * e_plain
+    log(f"  {what} {case['name']} vs float64 plain: kernel {e_kernel:.3e}, "
+        f"fp32 plain {e_plain:.3e} (largest |value| {scale:.3e}; kernel "
+        f"<= {F64_RATIO:g} x plain) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} {case['name']}: {e_kernel} from "
+                             f"float64, fp32 plain {e_plain}")
+
+
+def check_mamba2(gen, case: dict, timed: bool):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba2_ssd import mamba2_scan, plain
+    B, T, H, P, N = (case[k] for k in ("B", "T", "H", "P", "N"))
+    dev = "cuda"
+    dt_scale = case.get("dt_scale", 1.0)
+    x = torch.randn(B, T, H, P, device=dev, generator=gen)
+    dt = F.softplus(torch.randn(B, T, H, device=dev, generator=gen)) \
+        * dt_scale
+    A = -torch.exp(torch.randn(H, device=dev, generator=gen))
+    Bm = torch.randn(B, T, N, device=dev, generator=gen)
+    Cm = torch.randn(B, T, N, device=dev, generator=gen)
+    D = torch.randn(H, device=dev, generator=gen)
+    s0 = (torch.randn(B, H, P, N, device=dev, generator=gen)
+          if case.get("s0") else torch.zeros(B, H, P, N, device=dev))
+    if dt_scale != 1.0:
+        # large steps drive exp(A dt) to 0 and y to ~1e4, where fp32
+        # rounding alone exceeds the tolerance: held against float64 here,
+        # and against the plain version with x shrunk by the same factor
+        check_against_f64("mamba2 scan", mamba2_scan, plain, case,
+                          (x, dt, A, Bm, Cm, D, s0))
+        x = x / dt_scale
+    args = (x, dt, A, Bm, Cm, D, s0)
+    # per (b, h, t): 5 flops per state element (da*h + dx*B, then h*C
+    # into y) and 3 per row (dx, D*x, the sum); bytes: x, y, dt, B, C,
+    # A, D and the state in and out, each once
+    flops = 5.0 * B * T * H * P * N + 3.0 * B * T * H * P
+    nbytes = 4.0 * (2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel()
+                    + A.numel() + D.numel() + 2 * s0.numel())
+    return check_scan("mamba2 scan", mamba2_scan, plain, ops.mamba2, case,
+                      args, flops, nbytes, timed)
+
+
+def check_rwkv6(gen, case: dict, timed: bool):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6_scan import plain, rwkv6_scan
+    B, T, H, D = (case[k] for k in ("B", "T", "H", "D"))
+    dev = "cuda"
+    r, k, v = (torch.randn(B, T, H, D, device=dev, generator=gen)
+               for _ in range(3))
+    w = torch.randn(B, T, H, D, device=dev, generator=gen) * 0.5 - 0.5
+    if case.get("overflow"):    # exp(w) = inf: the decay must be exactly 0
+        w[:, ::3] = 100.0
+    u = torch.randn(H, D, device=dev, generator=gen) * 0.1
+    s0 = (torch.randn(B, H, D, D, device=dev, generator=gen)
+          if case.get("s0") else torch.zeros(B, H, D, D, device=dev))
+    # per (b, h, t), the least work: r S_{t-1} (2 flops per state
+    # element), S = d*S + k v (3 per element), and the bonus term
+    # v_e * sum_d r_d u_d k_d (5 per row); bytes: r, k, v, w, y, u and the
+    # state in and out, each once
+    flops = 5.0 * B * T * H * D * D + 5.0 * B * T * H * D
+    nbytes = 4.0 * (5 * r.numel() + u.numel() + 2 * s0.numel())
+    return check_scan("rwkv6 scan", rwkv6_scan, plain, ops.rwkv6, case,
+                      (r, k, v, w, u, s0), flops, nbytes, timed)
+
+
 def phase_kernels() -> dict:
-    """Every kernel against its plain version; the first case of each is
-    the slice's own shape and is timed."""
+    """Every kernel against its plain version.  The first case of each
+    is the shape its path gives it, and is timed for the kernel line; K1
+    is also timed at the other paths' heads, for the log."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = dict(B=4, Tq=256, Tk=256, Hq=28, Hkv=4, D=128, causal=True,
@@ -204,38 +340,108 @@ def phase_kernels() -> dict:
         dict(name="ragged N=300 D=200 V=1000", N=300, D=200, V=1000,
              ignore_every=5),
         dict(name="all labels ignored", N=130, D=64, V=300, ignore_every=1),
+        dict(name="mamba2-370m tied head (embed.T) N1024 D1024 V50288",
+             N=1024, D=1024, V=50288, ignore_every=7, tied=True,
+             timed=True),
+        dict(name="tied head, ragged N=300 D=200 V=1000", N=300, D=200,
+             V=1000, ignore_every=5, tied=True),
+        dict(name="rwkv6-7b head N1024 D4096 V65536", N=1024, D=4096,
+             V=65536, ignore_every=7, timed=True),
+    ]
+    ssd = dict(B=4, T=256, H=32, P=64, N=128)
+    ssd_cases = [
+        dict(ssd, name="slice B4 T256 H32 P64 N128"),
+        dict(ssd, name="ragged T=200", T=200),
+        dict(ssd, name="initial state, T=77", T=77, s0=True),
+        dict(ssd, name="T=1, initial state", T=1, s0=True),
+        dict(ssd, name="large dt (x30)", dt_scale=30.0),
+        dict(name="reduced B2 T37 H8 P32 N16", B=2, T=37, H=8, P=32, N=16,
+             s0=True),
+    ]
+    wkv = dict(B=4, T=256, H=64, D=64)
+    wkv_cases = [
+        dict(wkv, name="slice B4 T256 H64 D64"),
+        dict(wkv, name="ragged T=200", T=200),
+        dict(wkv, name="initial state, T=77", T=77, s0=True),
+        dict(wkv, name="T=1, initial state", T=1, s0=True),
+        dict(wkv, name="exp(w) overflows", overflow=True),
+        dict(name="reduced B2 T37 H4 D32", B=2, T=37, H=4, D=32, s0=True),
     ]
     out = {}
     log("kernels vs plain PyTorch on the card:")
-    for i, case in enumerate(attn_cases):
-        rec = check_attention(gen, case, timed=i == 0)
-        if rec is not None:
-            out["flash_attention"] = rec
-    for i, case in enumerate(ce_cases):
-        rec = check_ce(gen, case, timed=i == 0)
-        if rec is not None:
-            out["chunked_cross_entropy"] = rec
+    for key, check, cases in (
+            ("flash_attention", check_attention, attn_cases),
+            ("chunked_cross_entropy", check_ce, ce_cases),
+            ("mamba2_scan", check_mamba2, ssd_cases),
+            ("rwkv6_scan", check_rwkv6, wkv_cases)):
+        for i, case in enumerate(cases):
+            rec = check(gen, case, timed=i == 0 or case.get("timed", False))
+            if rec is not None:
+                out.setdefault(key, rec)
     return out
 
 
 # --------------------------------------------------------------- phase 4
-def phase_slice() -> dict:
+def _launch_counters():
+    from repro_torch.kernels.chunked_ce import chunked_cross_entropy
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    return {"flash_attention": flash_attention,
+            "chunked_cross_entropy": chunked_cross_entropy,
+            "mamba2_scan": mamba2_scan, "rwkv6_scan": rwkv6_scan}
+
+
+def check_reduced_on_card(arch: str) -> None:
+    """The family's reduced model (4 layers): loss and its gradient norm
+    on the card through the kernels equal the CPU's through the plain
+    versions, from the same parameters and batch."""
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_reduced_config(arch), num_layers=4)
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=gen)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+        b = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        loss, _ = lm.loss_fn(p, b)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        got[dev] = (loss.item(), float(torch.sqrt(sum(
+            (g.double() ** 2).sum() for g in grads))))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["cuda"], got["cpu"]))
+    ok = rel <= LOSS_RTOL
+    log(f"  {arch} reduced: loss {got['cuda'][0]:.6f} (card) vs "
+        f"{got['cpu'][0]:.6f} (cpu), grad norm rel err {rel:.3e} (tol "
+        f"{LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch}: card and CPU disagree ({rel})")
+
+
+def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
+    """Two FeDepth rounds of ``arch`` at every published width with
+    ``layers`` layers; returns this path's launch counts."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.decomposition import schedule_summary
     from repro_torch.fl.engine import RoundEngine, SimConfig
     from repro_torch.fl.registry import get_strategy
     from repro_torch.fl.seq import build_lm_context, build_seq_data
-    from repro_torch.kernels.chunked_ce import chunked_cross_entropy
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import build
     from repro_torch.tree import tree_leaves
 
-    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=4)
-    log(f"slice: {cfg.name} d_model {cfg.d_model} heads {cfg.num_heads}/"
-        f"{cfg.num_kv_heads} head_dim {cfg.head_dim} d_ff {cfg.d_ff} "
-        f"vocab {cfg.vocab_size} layers {cfg.num_layers} (cut from 28), "
-        f"{cfg.param_count() / 1e9:.3f} B params")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    cut = (f"(cut from {full.num_layers})" if layers < full.num_layers
+           else "(all)")
+    log(f"path {cfg.name}: family {cfg.family} d_model {cfg.d_model} vocab "
+        f"{cfg.vocab_size} tied head {cfg.tie_embeddings} layers "
+        f"{cfg.num_layers} {cut}, {cfg.param_count() / 1e9:.3f} B params")
+    check_reduced_on_card(arch)
     sim = SimConfig(rounds=2, participation=0.5, lr=0.05, momentum=0.9,
                     local_steps=1, batch_size=4, scenario="fair", seed=0)
     data = build_seq_data(6, n_per_client=16, n_test=16,
@@ -265,21 +471,20 @@ def phase_slice() -> dict:
         return out
 
     engine.run_round = measured_round
+    counters = _launch_counters()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    chunked_cross_entropy.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     state, history = engine.run(eval_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "chunked_cross_entropy": chunked_cross_entropy.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     with torch.no_grad():
         loss = float(build(cfg).loss_fn(state, {"tokens": data.x_test[:4],
                                                 "labels": data.y_test[:4]})[0])
     log(f"test loss after 2 rounds: {loss:.4f}")
-    if not math.isfinite(loss):
-        raise AssertionError(f"non-finite test loss {loss}")
     for rd, ids in enumerate(cohorts):
         blocks = [len(ctx.decomps[k].blocks) for k in ids]
         log(f"round {rd + 1}: cohort {ids}, blocks per client {blocks}")
@@ -288,19 +493,34 @@ def phase_slice() -> dict:
             f"{rec.seconds:.2f}  up bytes {rec.comm_bytes}  down bytes "
             f"{rec.down_bytes}  max_memory_allocated "
             f"{peak / 2**30:.2f} GiB")
-    log(f"slice: 2 rounds in {wall:.1f} s, launches {launches}")
+    log(f"path {cfg.name}: 2 rounds in {wall:.1f} s, launches {launches}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"{cfg.name}: non-finite test loss {loss}")
     if len(history) != 2 or not all(
             r.accuracy is not None and 0.0 <= r.accuracy <= 1.0
             for r in history):
-        raise AssertionError(f"bad history {history}")
+        raise AssertionError(f"{cfg.name}: bad history {history}")
     if not any(len(ctx.decomps[k].blocks) >= 2
                for ids in cohorts for k in ids):
-        raise AssertionError("no cohort client trained two blocks or more")
+        raise AssertionError(f"{cfg.name}: no cohort client trained two "
+                             f"blocks or more")
     if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(state)):
-        raise AssertionError("non-finite server parameters")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+        raise AssertionError(f"{cfg.name}: non-finite server parameters")
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{cfg.name}: kernels {missing} were not "
+                             f"launched: {launches}")
+    del state, engine, ctx, data
+    torch.cuda.empty_cache()
     return launches
+
+
+PATHS = (
+    # (arch, layers, kernels that must launch on the path)
+    ("qwen2-7b", 4, ("chunked_cross_entropy", "flash_attention")),
+    ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan")),
+    ("rwkv6-7b", 4, ("chunked_cross_entropy", "rwkv6_scan")),
+)
 
 
 KERNEL_META = {
@@ -310,6 +530,12 @@ KERNEL_META = {
     "chunked_cross_entropy": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/chunked_ce.cu",
         replaces="src/repro/kernels/chunked_ce.py:66"),
+    "mamba2_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+        replaces="src/repro/kernels/mamba2_ssd.py:92"),
+    "rwkv6_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:67"),
 }
 
 
@@ -324,7 +550,11 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     numbers = phase_kernels()
-    launches = phase_slice()
+    launches = {name: 0 for name in KERNEL_META}
+    for arch, layers, path_kernels in PATHS:
+        for name, n in phase_path(arch, layers, path_kernels).items():
+            launches[name] += n
+    # launches: the sum over the paths, each read from its own run
     kernels = [dict(name=name, **KERNEL_META[name], launches=launches[name],
                     **numbers[name]) for name in KERNEL_META]
     log(f"chip_smoke: all phases passed in "

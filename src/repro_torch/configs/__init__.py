@@ -2,15 +2,18 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_reduced_config(arch_id)`` the small one the CPU tests use (2 layers,
-d_model 128), both identical to the reference's.
+d_model 128), both identical to the reference's.  Ported so far: the dense
+``qwen2-7b`` and the attention-free ``mamba2-370m`` and ``rwkv6-7b``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen2_7b
+from repro_torch.configs import mamba2_370m, qwen2_7b, rwkv6_7b
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "qwen2-7b": qwen2_7b,
+    "mamba2-370m": mamba2_370m,
+    "rwkv6-7b": rwkv6_7b,
 }
 
 ARCH_IDS = tuple(_MODULES)

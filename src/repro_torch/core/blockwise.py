@@ -16,8 +16,10 @@ other tensor with its input.  So a cohort's payloads share their frozen
 tensors with the server state, and the next client in the cohort starts
 from the untouched broadcast.
 
-ResNet / ViT / whisper runners, ``head="aux"`` (m-FeDepth) and the
-stacked (vectorized) execution wait for later slices.
+The LM runner covers the dense and the attention-free (``ssm``: mamba2,
+rwkv6) families.  ResNet / ViT / whisper / hybrid runners, ``head="aux"``
+(m-FeDepth) and the stacked (vectorized) execution wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -52,21 +54,26 @@ class BlockRunner:
 
 
 def lm_runner(lm, head: str = "skip") -> BlockRunner:
-    """Runner over a dense-transformer ``LM`` (``repro_torch.models``)."""
+    """Runner over a dense-transformer or ``ssm`` ``LM``
+    (``repro_torch.models``).  The depth units live under
+    ``params["units"]`` (dense) or ``params["layers"]`` (ssm)."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
 
     cfg = lm.cfg
     if head != "skip":
         raise NotImplementedError("head='aux' (m-FeDepth) is not ported yet")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"{cfg.family!r} runner is not ported yet")
+    layers_key = "units" if cfg.family == "dense" else "layers"
     head_keys = {"final_norm", "lm_head"}
     if cfg.tie_embeddings:
         head_keys |= {"embed"}
 
     def embed(params, batch):
-        return transformer.embed_inputs(params, cfg, batch["tokens"])
+        if cfg.family == "dense":
+            return transformer.embed_inputs(params, cfg, batch["tokens"])
+        return params["embed"][batch["tokens"]]
 
     def apply_units(params, z, lo, hi):
         out, _aux = lm.apply_range(params, z, lo, hi)
@@ -74,13 +81,13 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
 
     def head_loss(params, z, batch, block_idx):
         x = common.rms_norm(z, params["final_norm"], cfg.norm_eps)
-        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        ce, _ = ops.cross_entropy(x, w, batch["labels"])
+        ce, _ = ops.cross_entropy(x, common.head_weight(params, cfg),
+                                  batch["labels"])
         return ce
 
     def split(params, lo, hi):
         train = {k: v for k, v in params.items() if k in head_keys}
-        train["units"] = params["units"][lo:hi]
+        train[layers_key] = params[layers_key][lo:hi]
         if lo == 0 and "embed" not in train:
             train["embed"] = params["embed"]
         return train
@@ -88,7 +95,7 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
     def merge(params, train, lo: int = None, hi: int = None):
         out = dict(params)
         for k, v in train.items():
-            if k == "units":
+            if k == layers_key:
                 out[k] = params[k][:lo] + list(v) + params[k][hi:]
             else:
                 out[k] = v

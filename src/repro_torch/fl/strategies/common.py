@@ -5,7 +5,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build, common as mcommon
-from repro_torch.models.transformer import lm_head_weight
 
 
 @torch.no_grad()
@@ -19,7 +18,7 @@ def lm_accuracy(cfg: ModelConfig, params, x: torch.Tensor, y: torch.Tensor,
         xb, yb = x[i:i + batch], y[i:i + batch]
         h, _ = lm.forward_hidden(params, xb)
         h = mcommon.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        pred = (h @ lm_head_weight(params, cfg)).argmax(dim=-1)
+        pred = (h @ mcommon.head_weight(params, cfg)).argmax(dim=-1)
         valid = yb >= 0
         correct += int(((pred == yb) & valid).sum())
         total += int(valid.sum())

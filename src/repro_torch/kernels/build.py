@@ -17,11 +17,13 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("flash_attention", "chunked_ce")
+KERNELS = ("flash_attention", "chunked_ce", "mamba2_ssd", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -95,3 +97,22 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what} failed to launch: CUDA error {err}")
+
+
+def check_args(what: str, device: torch.device,
+               args: Sequence[Tuple[str, torch.Tensor,
+                                    Optional[Tuple[int, ...]]]]) -> None:
+    """Raise unless each ``(name, tensor, shape)`` is a contiguous float32
+    tensor on ``device`` with that shape (``None``: any shape)."""
+    for name, t, shape in args:
+        if t.device != device:
+            raise ValueError(f"{what}: {name} on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} is {t.dtype}; the kernel takes "
+                            f"float32")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")

@@ -21,7 +21,7 @@ from repro_torch.kernels.ref import cross_entropy_logits as plain
 def _lib():
     lib = build.load("chunked_ce")
     if lib.ce_fwd.argtypes is None:
-        lib.ce_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        lib.ce_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                                + [ctypes.c_void_p])
         lib.ce_fwd.restype = ctypes.c_int
         lib.ce_num_vocab_tiles.argtypes = [ctypes.c_int]
@@ -34,22 +34,26 @@ def chunked_cross_entropy(hidden: torch.Tensor,    # (B, T, D)
                           labels: torch.Tensor,    # (B, T); -100 = ignore
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (mean NLL over valid labels, n_valid).  Forward only;
-    ``repro_torch.kernels.ops.cross_entropy`` adds the backward."""
+    ``repro_torch.kernels.ops.cross_entropy`` adds the backward.
+
+    ``lm_head`` is either contiguous or the transpose of a contiguous
+    (V, D) table (a tied head, ``embed.T``), which the kernel reads in
+    place."""
     if hidden.device.type == "cpu":
         return plain(hidden, lm_head, labels)
     if hidden.device.type != "cuda":
         raise ValueError(f"chunked_cross_entropy: unsupported device "
                          f"{hidden.device}")
-    for name, t in (("hidden", hidden), ("lm_head", lm_head)):
-        if t.device != hidden.device or labels.device != hidden.device:
-            raise ValueError("chunked_cross_entropy: inputs on different "
-                             "devices")
-        if t.dtype != torch.float32:
-            raise TypeError(f"chunked_cross_entropy: {name} is {t.dtype}; "
-                            f"the kernel takes float32")
-        if not t.is_contiguous():
-            raise ValueError(f"chunked_cross_entropy: {name} must be "
-                             f"contiguous")
+    # a tied head: the transpose of a contiguous (V, D) table
+    head_is_vd = (lm_head.dim() == 2 and not lm_head.is_contiguous()
+                  and lm_head.t().is_contiguous())
+    build.check_args("chunked_cross_entropy", hidden.device,
+                     (("hidden", hidden, None),
+                      ("lm_head", lm_head.t() if head_is_vd else lm_head,
+                       None)))
+    if labels.device != hidden.device:
+        raise ValueError(f"chunked_cross_entropy: labels on {labels.device}, "
+                         f"expected {hidden.device}")
     if hidden.dim() != 3 or lm_head.dim() != 2 \
             or lm_head.shape[0] != hidden.shape[2] \
             or tuple(labels.shape) != tuple(hidden.shape[:2]):
@@ -74,6 +78,7 @@ def chunked_cross_entropy(hidden: torch.Tensor,    # (B, T, D)
     nll = torch.empty(N, device=hidden.device, dtype=torch.float32)
     err = lib.ce_fwd(hidden.data_ptr(), lm_head.data_ptr(), lbl.data_ptr(),
                      partials.data_ptr(), nll.data_ptr(), N, D, V,
+                     int(head_is_vd),
                      torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "chunked_cross_entropy")
     chunked_cross_entropy.launches += 1

@@ -23,6 +23,13 @@
 // lm_head tile run together and read it from L2 rather than device memory.
 // A second pass (one warp per row) folds the partials with the same online
 // rule and writes the row's NLL.  Simple first: no wgmma, no TMA.
+//
+// Tied heads.  A model that ties its head to the embedding passes
+// lm_head = embed.T, a (D, V) view of the row-major (V, D) table.  The
+// `head_is_vd` flag reads that table in place (a column tile of the head is
+// a row tile of the table: 8 consecutive k per vocab row, coalesced in
+// 32-byte runs) rather than copying 4*V*D bytes per call; the B tile's rows
+// are padded so that these transposed shared-memory stores do not conflict.
 
 #include <cuda_runtime.h>
 
@@ -32,6 +39,7 @@ constexpr int BM = 128;        // token rows per block
 constexpr int BN = 128;        // vocab columns per block
 constexpr int BKD = 8;         // k slice through shared memory
 constexpr int APAD = 4;        // As row padding: conflict-free transposed stores
+constexpr int BPAD = 4;        // Bs row padding: the same for a (V, D) head
 constexpr int NTHREADS = 256;  // 16 x 16, 8x8 outputs each
 constexpr float NEG_INF = -1e30f;
 
@@ -41,13 +49,16 @@ __device__ __forceinline__ int split4(int t, int i) {
   return (i < 4) ? (t * 4 + i) : (64 + t * 4 + (i - 4));
 }
 
+// kVD: w is the (V, D) row-major table of a tied head (lm_head = table.T);
+// otherwise w is the (D, V) row-major head
+template <bool kVD>
 __global__ void __launch_bounds__(NTHREADS)
 ce_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
                   const int* __restrict__ labels, float* __restrict__ pm,
                   float* __restrict__ pl, float* __restrict__ pg, int N,
                   int D, int V, int nvt) {
   __shared__ __align__(16) float As[BKD][BM + APAD];
-  __shared__ __align__(16) float Bs[BKD][BN];
+  __shared__ __align__(16) float Bs[BKD][BN + BPAD];
 
   const int row0 = blockIdx.x * BM;
   const int vt = blockIdx.y;
@@ -75,11 +86,12 @@ ce_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
     for (int it = 0; it < (BN * BKD) / NTHREADS; ++it) {
       const int idx = tid + it * NTHREADS;
-      const int kk = idx / BN;
-      const int c = idx % BN;
+      const int kk = kVD ? idx % BKD : idx / BN;
+      const int c = kVD ? idx / BKD : idx % BN;
       const int gk = k0 + kk;
       const int gc = col0 + c;
-      Bs[kk][c] = (gk < D && gc < V) ? w[(size_t)gk * V + gc] : 0.f;
+      const size_t at = kVD ? (size_t)gc * D + gk : (size_t)gk * V + gc;
+      Bs[kk][c] = (gk < D && gc < V) ? w[at] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -172,12 +184,14 @@ __global__ void ce_combine_kernel(const float* __restrict__ pm,
 
 // Plain C entry point (loaded with ctypes).  `partials` holds 3*N*nvt floats
 // (nvt = ceil(V/128), see ce_num_vocab_tiles); `nll` holds N floats.
+// `head_is_vd` = 0: w is the (D, V) row-major head; 1: w is a (V, D)
+// row-major table and the head is its transpose (tied embeddings).
 // Launches on `stream`, does not synchronise, returns cudaGetLastError().
 extern "C" int ce_num_vocab_tiles(int V) { return (V + BN - 1) / BN; }
 
 extern "C" int ce_fwd(const float* h, const float* w, const int* labels,
                       float* partials, float* nll, int N, int D, int V,
-                      void* stream) {
+                      int head_is_vd, void* stream) {
   if (N < 1 || D < 1 || V < 1) return (int)cudaErrorInvalidValue;
   const int nvt = (V + BN - 1) / BN;
   if (nvt > 65535) return (int)cudaErrorInvalidValue;
@@ -186,8 +200,12 @@ extern "C" int ce_fwd(const float* h, const float* w, const int* labels,
   float* pg = pl + (size_t)N * nvt;
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid((N + BM - 1) / BM, nvt);
-  ce_partial_kernel<<<grid, NTHREADS, 0, s>>>(h, w, labels, pm, pl, pg, N, D,
-                                              V, nvt);
+  if (head_is_vd)
+    ce_partial_kernel<true><<<grid, NTHREADS, 0, s>>>(h, w, labels, pm, pl,
+                                                      pg, N, D, V, nvt);
+  else
+    ce_partial_kernel<false><<<grid, NTHREADS, 0, s>>>(h, w, labels, pm, pl,
+                                                       pg, N, D, V, nvt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;

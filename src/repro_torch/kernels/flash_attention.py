@@ -42,16 +42,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      q_offset=q_offset, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"flash_attention: {name} on {t.device}, "
-                             f"q on {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}; the "
-                            f"kernel takes float32")
-        if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous "
-                             f"4-d tensor, got {tuple(t.shape)}")
+    build.check_args("flash_attention", q.device,
+                     (("q", q, None), ("k", k, None), ("v", v, None)))
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be 4-d, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
     B, Tq, Hq, D = q.shape
     Bk, Tk, Hkv, Dk = k.shape
     if (Bk, Dk) != (B, D) or v.shape != k.shape:

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-Ports of ``repro.kernels.ref.attention`` and ``cross_entropy_logits``: the
-semantic ground truth.  The kernel wrappers take these for tensors on the
+Ports of ``repro.kernels.ref.attention``, ``cross_entropy_logits``,
+``mamba2_scan`` and ``rwkv6_scan``: the semantic ground truth.  The kernel wrappers take these for tensors on the
 CPU (the tests), and ``chip_smoke.py`` holds each CUDA kernel against them
 on the card.  Nothing on the main path calls them when a card is present.
 """
@@ -66,3 +66,113 @@ def cross_entropy_logits(hidden: torch.Tensor,     # (B, T, D)
     valid = labels >= 0
     n = valid.sum().clamp(min=1)
     return torch.where(valid, logz - gold, 0.0).sum() / n, n
+
+
+def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)
+                dt: torch.Tensor,    # (B, T, H)  positive step sizes
+                A: torch.Tensor,     # (H,)       negative decay rates
+                Bm: torch.Tensor,    # (B, T, N)  shared across heads
+                Cm: torch.Tensor,    # (B, T, N)
+                D: torch.Tensor,     # (H,)       skip connection
+                initial_state: Optional[torch.Tensor] = None,  # (B,H,P,N)
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD, sequential over time: h_t = exp(A dt_t) h_{t-1} +
+    dt_t (x_t ⊗ B_t), y_t = C_t · h_t + D x_t.  Computes in fp32, or in
+    float64 when x is float64.  Returns (y in x's dtype, final state in
+    the compute dtype)."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, dtf, Bf, Cf, Af, Df = (t.to(ct) for t in (x, dt, Bm, Cm, A, D))
+    h = (torch.zeros(Bsz, H, P, N, device=x.device, dtype=ct)
+         if initial_state is None else initial_state.to(ct))
+    ys = []
+    for t in range(T):
+        da = torch.exp(Af[None, :] * dtf[:, t])                  # (B, H)
+        dBx = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]
+               * Bf[:, t, None, None, :])                        # (B,H,P,N)
+        h = da[..., None, None] * h + dBx
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * Df[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def mamba2_scan_chunked(x, dt, A, Bm, Cm, D, initial_state=None, *,
+                        chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function as :func:`mamba2_scan` in the chunked SSD form
+    (``repro.kernels.mamba2_ssd._ssd_kernel``): per chunk of ``chunk``
+    steps, with cs = cumsum(A dt),
+      y = (C Bᵀ ∘ exp(cs_t − cs_i) ∘ dt_i, i ≤ t) @ x
+          + exp(cs_t) C · h_in + D x,
+      h_out = exp(cs_last) h_in + (x ∘ exp(cs_last − cs) dt)ᵀ @ B.
+    A handful of batched products instead of a T-step loop, so the
+    backward's recompute is not launch-bound on the card.  The entries
+    above the diagonal are set to −inf before ``exp``, so no inf (and no
+    NaN in the gradient) ever arises; padded steps have dt = 0, which
+    neither decays nor feeds the state.
+
+    It computes in float64 and returns y in x's dtype and the state in
+    float32.  The chunked form reassociates the sequential sums, and in
+    float32 its gradient drifts ~1e-5 from the sequential one where terms
+    cancel (the dt gradient through the cumulative sum); in float64 it
+    agrees with the sequential float32 gradient to that gradient's own
+    rounding."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    f64 = torch.float64
+    L = min(chunk, T)
+    pad = (-T) % L
+    xf, dtf, Bf, Cf = (t.to(f64) for t in (x, dt, Bm, Cm))
+    if pad:
+        xf, dtf, Bf, Cf = (torch.nn.functional.pad(
+            a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in (xf, dtf, Bf, Cf))
+    nc = (T + pad) // L
+    xc = xf.reshape(Bsz, nc, L, H, P)
+    dtc = dtf.reshape(Bsz, nc, L, H)
+    Bc = Bf.reshape(Bsz, nc, L, N)
+    Cc = Cf.reshape(Bsz, nc, L, N)
+    cs = torch.cumsum(A.to(f64) * dtc, dim=2)                  # (B,nc,L,H)
+    rel = cs[:, :, :, None, :] - cs[:, :, None, :, :]         # (B,nc,t,i,H)
+    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(causal[:, :, None], rel, -torch.inf))
+    scores = torch.einsum("bctn,bcin->bcti", Cc, Bc)
+    M = scores[..., None] * decay * dtc[:, :, None, :, :]
+    y = torch.einsum("bctih,bcihp->bcthp", M, xc)
+    wgt = torch.exp(cs[:, :, -1:, :] - cs) * dtc               # (B,nc,L,H)
+    local = torch.einsum("bcih,bcihp,bcin->bchpn", wgt, xc, Bc)
+    h = (torch.zeros(Bsz, H, P, N, device=x.device, dtype=f64)
+         if initial_state is None else initial_state.to(f64))
+    entry = []
+    for c in range(nc):
+        entry.append(h)
+        h = torch.exp(cs[:, c, -1, :])[..., None, None] * h + local[:, c]
+    h_in = torch.stack(entry, dim=1)                           # (B,nc,H,P,N)
+    y = y + torch.einsum("bctn,bchpn->bcthp", Cc, h_in) \
+        * torch.exp(cs)[..., None]
+    y = y.reshape(Bsz, nc * L, H, P)[:, :T] \
+        + xf[:, :T] * D.to(f64)[None, None, :, None]
+    return y.to(x.dtype), h.float()
+
+
+def rwkv6_scan(r: torch.Tensor,      # (B, T, H, D) receptance
+               k: torch.Tensor,      # (B, T, H, D) key
+               v: torch.Tensor,      # (B, T, H, D) value
+               w: torch.Tensor,      # (B, T, H, D) decay logits
+               u: torch.Tensor,      # (H, D) bonus of the current token
+               initial_state: Optional[torch.Tensor] = None,  # (B,H,D,D)
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV6, sequential over time: S_t = diag(d_t) S_{t-1} + k_tᵀ v_t,
+    y_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t), d_t = exp(−exp(w_t)).
+    Returns (y in r's dtype, final state in fp32)."""
+    Bsz, T, H, D = r.shape
+    rf, kf, vf = r.float(), k.float(), v.float()
+    decay = torch.exp(-torch.exp(w.float()))
+    uf = u.float()[None, :, :, None]
+    S = (torch.zeros(Bsz, H, D, D, device=r.device) if initial_state is None
+         else initial_state.float())
+    ys = []
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]         # (B,H,D,D)
+        ys.append(torch.einsum("bhd,bhde->bhe", rf[:, t], S + uf * kv))
+        S = decay[:, t, :, :, None] * S + kv
+    return torch.stack(ys, dim=1).to(r.dtype), S

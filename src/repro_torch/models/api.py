@@ -1,4 +1,5 @@
-"""Unified model API (port of ``repro.models.api``, dense family).
+"""Unified model API (port of ``repro.models.api``: the dense family and
+the attention-free ``ssm`` family, mamba2 and rwkv6).
 
 ``build(cfg)`` -> ``LM`` with ``init``, ``loss_fn`` and the depth hooks
 ``num_depth_units`` / ``apply_range`` / ``forward_hidden`` that
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import mamba2_lm, rwkv6, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +39,13 @@ class LM:
     @property
     def num_depth_units(self) -> int:
         """Finest decomposition granularity (paper: 'finest blocks')."""
+        if self.cfg.family == "ssm":
+            return self.cfg.num_layers
         return self.cfg.num_layers // self.cfg.moe_every
 
     def apply_range(self, params, x, lo: int, hi: int):
+        if self.cfg.family == "ssm":
+            return self.module.apply_layer_range(params, self.cfg, x, lo, hi)
         return self.module.apply_unit_range(params, self.cfg, x, lo, hi)
 
     def forward_hidden(self, params, tokens):
@@ -51,5 +56,8 @@ def build(cfg: ModelConfig) -> LM:
     if cfg.family == "dense":
         transformer._check_family(cfg)
         return LM(cfg, transformer)
+    if cfg.family == "ssm":
+        return LM(cfg, mamba2_lm if cfg.ssm_kind == "mamba2" else rwkv6)
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (dense only)")
+        f"model family {cfg.family!r} is not ported yet (dense and ssm "
+        f"only)")

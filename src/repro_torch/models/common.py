@@ -9,7 +9,7 @@ reference's parameters (``repro_torch.testing.convert``).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +38,11 @@ def embed_init(gen: torch.Generator, shape: Sequence[int], *, device,
 # --------------------------------------------------------------------------
 # norms / activations
 # --------------------------------------------------------------------------
+def head_weight(p: Dict[str, Any], cfg) -> torch.Tensor:
+    """The (D, V) output head: ``embed.T`` when the config ties it."""
+    return p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm with fp32 statistics."""

@@ -63,10 +63,6 @@ def init(cfg: ModelConfig, *, generator: torch.Generator, device,
     return p
 
 
-def lm_head_weight(p: Params, cfg: ModelConfig) -> torch.Tensor:
-    return p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-
-
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
@@ -107,6 +103,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     """Mean next-token CE on a train batch."""
     x, aux = forward_hidden(p, cfg, batch["tokens"])
     x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
-    ce, n = ops.cross_entropy(x, lm_head_weight(p, cfg), batch["labels"])
+    ce, n = ops.cross_entropy(x, common.head_weight(p, cfg),
+                              batch["labels"])
     loss = ce + cfg.router_aux_coef * aux
     return loss, {"ce": ce, "aux": aux, "n_tokens": n}

@@ -2,8 +2,10 @@
 
 The reference keeps a dense transformer as
 ``{"embed", "units": {"sub_0": {... leaves stacked on a leading layer
-axis}}, "final_norm", "lm_head"}`` of arrays; the port keeps
-``params["units"]`` as a list with one dict per layer.  Matrices keep the
+axis}}, "final_norm", "lm_head"}`` of arrays, and an ``ssm`` LM (mamba2,
+rwkv6) as ``{"embed", "layers": {... stacked leaves}, "final_norm"[,
+"lm_head"]}``; the port keeps ``params["units"]`` / ``params["layers"]``
+as a list with one dict per layer.  Matrices keep the
 reference's (in, out) layout on both sides (the port multiplies
 ``x @ w``), so nothing is transposed.  Arrays cross as numpy, so this
 module needs neither JAX nor the reference package.
@@ -38,13 +40,16 @@ def params_from_reference(tree: Dict[str, Any], *,
     """Reference parameter tree (numpy arrays) -> the port's tree of
     tensors on ``device`` (the GPU unless ``"cpu"``)."""
     dev = resolve_device(device)
-    units = tree["units"]
-    if set(units) != {"sub_0"}:
-        raise NotImplementedError(
-            f"only one sublayer per unit is ported, got {sorted(units)}")
-    n = len(tree_leaves(units["sub_0"])[0])
-    out = {k: v for k, v in tree.items() if k != "units"}
-    out["units"] = [_unstack(units["sub_0"], i) for i in range(n)]
+    out = dict(tree)
+    key = "layers" if "layers" in tree else "units"
+    stacked = tree[key]
+    if key == "units":
+        if set(stacked) != {"sub_0"}:
+            raise NotImplementedError(
+                f"only one sublayer per unit is ported, got {sorted(stacked)}")
+        stacked = stacked["sub_0"]
+    n = len(tree_leaves(stacked)[0])
+    out[key] = [_unstack(stacked, i) for i in range(n)]
     return tree_map(lambda a: torch.tensor(np.array(a), dtype=dtype,
                                            device=dev), out)
 
@@ -52,7 +57,10 @@ def params_from_reference(tree: Dict[str, Any], *,
 def params_to_reference(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's tree -> the reference's layout, as numpy arrays."""
     host = tree_map(lambda t: t.detach().cpu().numpy(), params)
-    out = {k: v for k, v in host.items() if k != "units"}
-    out["units"] = {"sub_0": _stack(host["units"])}
+    out = dict(host)
+    if "layers" in host:
+        out["layers"] = _stack(host["layers"])
+    else:
+        out["units"] = {"sub_0": _stack(host["units"])}
     return out
 

@@ -6,9 +6,12 @@ card (which has no JAX) run them with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on ragged shapes
-(K2 max abs error <= 1e-4, K1 loss relative error <= 1e-5); one FeDepth
-round on the card is held against the same round on the CPU (atol 1e-4,
-rtol 1e-3: fp32, different kernels and summation order).
+(K2 max abs error <= 1e-4, K1 loss relative error <= 1e-5, K3 and K4
+|a - b| <= 1e-4 + 1e-4 |b| on the output and the final state); a tied
+head (``embed.T``) runs through the CE op with its loss and gradients
+equal to the plain version's; one FeDepth round of each ported family on
+the card is held against the same round on the CPU (atol 1e-4, rtol 1e-3:
+fp32, different kernels and summation order).
 """
 import dataclasses
 
@@ -21,9 +24,11 @@ from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.fl.engine import RoundEngine, SimConfig  # noqa: E402
 from repro_torch.fl.registry import get_strategy  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.chunked_ce import chunked_cross_entropy  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import mamba2_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -53,6 +58,29 @@ CE_CASES = [
     (14, 16, 37, 0.0), (130, 24, 1000, 0.3), (5, 8, 20, 1.0),
     (300, 200, 4099, 0.1),
 ]
+SSD_CASES = [
+    # (B, T, H, P, N, dt scale, initial state)
+    (2, 200, 4, 64, 128, 1.0, False),   # ragged T, the slice's P and N
+    (1, 77, 3, 64, 128, 1.0, True),
+    (2, 1, 4, 64, 128, 1.0, True),
+    (1, 64, 2, 64, 128, 30.0, True),    # large steps: exp(A dt) underflows
+    (2, 37, 8, 32, 16, 1.0, True),      # the reduced config's P and N
+]
+WKV_CASES = [
+    # (B, T, H, D, initial state, exp(w) overflows)
+    (2, 200, 4, 64, False, False),
+    (1, 77, 3, 64, True, False),
+    (2, 1, 4, 64, True, False),
+    (1, 64, 2, 64, True, True),
+    (2, 37, 4, 32, True, False),
+]
+SCAN_TOL = 1e-4
+
+
+def _assert_scan_close(outs, refs, case):
+    for name, a, b in zip(("y", "final state"), outs, refs):
+        bad = (a - b).abs() > SCAN_TOL + SCAN_TOL * b.abs()
+        assert torch.isfinite(a).all() and not bad.any(), (case, name)
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
@@ -87,6 +115,72 @@ def test_chunked_ce_matches_plain(cuda, case):
         1e-5 * max(abs(ref_loss.item()), 1e-30), case
 
 
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_mamba2_scan_matches_plain(cuda, case):
+    B, T, H, P, N, dt_scale, with_s0 = case
+    gen = torch.Generator(device=cuda).manual_seed(T + H)
+    # large steps drive exp(A dt) to 0; x shrinks by the same factor so
+    # that dt x, and so y's fp32 rounding, keep their size
+    x = torch.randn(B, T, H, P, device=cuda, generator=gen) / dt_scale
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, H, device=cuda, generator=gen)) * dt_scale
+    A = -torch.exp(torch.randn(H, device=cuda, generator=gen))
+    Bm, Cm = (torch.randn(B, T, N, device=cuda, generator=gen)
+              for _ in range(2))
+    D = torch.randn(H, device=cuda, generator=gen)
+    s0 = (torch.randn(B, H, P, N, device=cuda, generator=gen) if with_s0
+          else torch.zeros(B, H, P, N, device=cuda))
+    before = mamba2_scan.launches
+    outs = mamba2_scan(x, dt, A, Bm, Cm, D, s0)
+    assert mamba2_scan.launches == before + 1
+    _assert_scan_close(outs, ref.mamba2_scan(x, dt, A, Bm, Cm, D, s0), case)
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_rwkv6_scan_matches_plain(cuda, case):
+    B, T, H, D, with_s0, overflow = case
+    gen = torch.Generator(device=cuda).manual_seed(T + H)
+    r, k, v = (torch.randn(B, T, H, D, device=cuda, generator=gen)
+               for _ in range(3))
+    w = torch.randn(B, T, H, D, device=cuda, generator=gen) * 0.5 - 0.5
+    if overflow:     # exp(w) = inf: the decay is exactly 0, never NaN
+        w[:, ::3] = 100.0
+    u = torch.randn(H, D, device=cuda, generator=gen) * 0.1
+    s0 = (torch.randn(B, H, D, D, device=cuda, generator=gen) if with_s0
+          else torch.zeros(B, H, D, D, device=cuda))
+    before = rwkv6_scan.launches
+    outs = rwkv6_scan(r, k, v, w, u, s0)
+    assert rwkv6_scan.launches == before + 1
+    _assert_scan_close(outs, ref.rwkv6_scan(r, k, v, w, u, s0), case)
+
+
+@pytest.mark.parametrize("N,D,V", [(300, 200, 1000), (64, 96, 50288)])
+def test_tied_head_cross_entropy_matches_plain(cuda, N, D, V):
+    """A tied head is ``embed.T``, a transposed view: the kernel reads the
+    (V, D) table in place, and the gradient reaches ``embed``."""
+    gen = torch.Generator(device=cuda).manual_seed(V)
+    h0 = torch.randn(1, N, D, device=cuda, generator=gen)
+    e0 = torch.randn(V, D, device=cuda, generator=gen) / D ** 0.5
+    labels = torch.randint(0, V, (1, N), device=cuda, generator=gen)
+    labels[:, ::5] = -100
+    got = {}
+    for name, fn in (("kernel", lambda h, e: ops.cross_entropy(h, e.T,
+                                                                labels)[0]),
+                     ("plain", lambda h, e: ref.cross_entropy_logits(
+                         h, e.T, labels)[0])):
+        h, e = h0.clone().requires_grad_(), e0.clone().requires_grad_()
+        before = chunked_cross_entropy.launches
+        loss = fn(h, e)
+        launched = chunked_cross_entropy.launches - before
+        assert launched == (name == "kernel")
+        got[name] = (loss, *torch.autograd.grad(loss, (h, e)))
+    (lk, dhk, dek), (lp, dhp, dep) = got["kernel"], got["plain"]
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    assert float(dek.abs().max()) > 0
+    torch.testing.assert_close(dhk, dhp, atol=1e-6, rtol=1e-4)
+    torch.testing.assert_close(dek, dep, atol=1e-6, rtol=1e-4)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 8, 2, 16, device=cuda)
     with pytest.raises(TypeError):
@@ -102,16 +196,45 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         chunked_cross_entropy(h.half(), w.half(), labels)
     with pytest.raises(ValueError):
         chunked_cross_entropy(h, w.cpu(), labels)
+    with pytest.raises(ValueError):    # neither (D, V) nor a (V, D) table
+        chunked_cross_entropy(h, torch.randn(2, 10, device=cuda)[:, ::2],
+                              labels)
+    x = torch.randn(1, 4, 2, 8, device=cuda)
+    dt, hv, bc = torch.ones(1, 4, 2, device=cuda), torch.ones(2, device=cuda), \
+        torch.randn(1, 4, 16, device=cuda)
+    with pytest.raises(TypeError):
+        mamba2_scan(x.double(), dt, hv, bc, bc, hv)
+    with pytest.raises(ValueError):    # same shape, not contiguous
+        mamba2_scan(x, dt, hv, torch.randn(1, 4, 32, device=cuda)[..., ::2],
+                    bc, hv)
+    with pytest.raises(ValueError):    # a state wider than the block holds
+        wide = torch.randn(1, 4, 2048, device=cuda)
+        mamba2_scan(x, dt, hv, wide, wide, hv)
+    r = torch.randn(1, 4, 2, 8, device=cuda)
+    u = torch.randn(2, 8, device=cuda)
+    with pytest.raises(TypeError):
+        rwkv6_scan(r, r, r, r.double(), u)
+    with pytest.raises(ValueError):
+        rwkv6_scan(r, torch.randn(1, 4, 2, 16, device=cuda)[..., ::2], r, r,
+                   u)
+    with pytest.raises(ValueError):
+        rwkv6_scan(r, r, r, r, u[:1])
 
 
-def test_round_on_the_card_matches_the_cpu(cuda):
-    """One FeDepth round of reduced qwen2-7b (4 layers) through the CUDA
+PATH_KERNELS = {"qwen2-7b": (flash_attention, chunked_cross_entropy),
+                "mamba2-370m": (mamba2_scan, chunked_cross_entropy),
+                "rwkv6-7b": (rwkv6_scan, chunked_cross_entropy)}
+
+
+@pytest.mark.parametrize("arch", sorted(PATH_KERNELS))
+def test_round_on_the_card_matches_the_cpu(cuda, arch):
+    """One FeDepth round of the reduced model (4 layers) through the CUDA
     kernels equals the same round on the CPU."""
-    cfg = dataclasses.replace(get_reduced_config("qwen2-7b"), num_layers=4)
+    cfg = dataclasses.replace(get_reduced_config(arch), num_layers=4)
     sim = SimConfig(rounds=1, participation=0.5, lr=0.05, local_steps=1,
                     batch_size=4, seed=0)
     init = build(cfg).init(0, device="cpu")
-    before = (flash_attention.launches, chunked_cross_entropy.launches)
+    before = [fn.launches for fn in PATH_KERNELS[arch]]
     states = {}
     for dev in ("cpu", "cuda"):
         data = build_seq_data(6, n_per_client=12, n_test=8,
@@ -120,8 +243,8 @@ def test_round_on_the_card_matches_the_cpu(cuda):
         ctx = build_lm_context(data, sim, cfg, device=dev)
         states[dev], _ = RoundEngine(get_strategy("fedepth"), ctx).run(
             initial_state=tree_map(lambda t: t.to(dev), init))
-    assert flash_attention.launches > before[0]
-    assert chunked_cross_entropy.launches > before[1]
+    for fn, n in zip(PATH_KERNELS[arch], before):
+        assert fn.launches > n, fn.__name__
     for a, b in zip(tree_leaves(states["cuda"]), tree_leaves(states["cpu"])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-3)

@@ -1,8 +1,10 @@
 """Port FeDepth round engine vs the reference engine (PyTorch port).
 
-Two FeDepth rounds over the synthetic noisy-successor LM task on reduced
-qwen2-7b cut to 4 layers (6 clients, participation 0.5, fair budgets:
-multi-block and partial-training clients in the cohorts).  Both engines
+Two FeDepth rounds over the synthetic noisy-successor LM task on each
+ported family, reduced and cut to 4 layers: the dense qwen2-7b and the
+attention-free mamba2-370m (tied head) and rwkv6-7b (6 clients,
+participation 0.5, fair budgets: multi-block and partial-training clients
+in the cohorts).  Both engines
 start from the reference's initial parameters (converted) and draw from
 ``np.random.default_rng(seed)`` in the same order, so cohort ids and
 batches must be identical; server parameters agree every round within
@@ -67,9 +69,10 @@ def to_np(v):
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def test_two_rounds_match_reference_engine():
-    jcfg = dataclasses.replace(j_reduced("qwen2-7b"), num_layers=4)
-    cfg = dataclasses.replace(get_reduced_config("qwen2-7b"), num_layers=4)
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-370m", "rwkv6-7b"])
+def test_two_rounds_match_reference_engine(arch):
+    jcfg = dataclasses.replace(j_reduced(arch), num_layers=4)
+    cfg = dataclasses.replace(get_reduced_config(arch), num_layers=4)
 
     jctx = j_context(j_data(6, vocab_size=jcfg.vocab_size, **DATA),
                      JSim(**SIM), jcfg, kernel_force="ref")

@@ -186,16 +186,18 @@ def test_lm_memory_matches_reference(arch):
                 dataclasses.astuple(j_decompose(jm, int(b)))
 
 
-def test_full_width_slice_decomposes_into_blocks():
-    """The chip slice (qwen2-7b, every width published, 4 layers, fair
+@pytest.mark.parametrize("arch,layers,billions", [
+    ("qwen2-7b", 4, 2.02), ("mamba2-370m", 48, 0.37), ("rwkv6-7b", 4, 1.42)])
+def test_full_width_slice_decomposes_into_blocks(arch, layers, billions):
+    """Each chip path (every width published, ``layers`` layers, fair
     scenario, 6 clients, seq 256) gives multi-block clients, so the
     prefix-advance path runs on the card."""
     from repro_torch.configs import get_config
     from repro_torch.fl.engine import client_ratios
-    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=4)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     mem = lm_memory(cfg, 128, 256)
     decs = [decompose(mem, int(b))
             for b in scenario_budgets(mem, client_ratios(6, "fair", 0))]
     assert max(d.num_blocks for d in decs) >= 2
-    assert all(d.blocks[-1][1] == 4 for d in decs)
-    assert abs(cfg.param_count() / 1e9 - 2.02) < 0.01
+    assert all(d.blocks[-1][1] == layers for d in decs)
+    assert abs(cfg.param_count() / 1e9 - billions) < 0.01

@@ -25,16 +25,27 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
-def test_convert_round_trip():
+# (arch, the port's list of layers, a stacked leaf's path in the reference)
+TREES = [("qwen2-7b", "units", ("units", "sub_0", "attn", "wq")),
+         ("mamba2-370m", "layers", ("layers", "in_proj")),
+         ("rwkv6-7b", "layers", ("layers", "w_lora_a"))]
+
+
+@pytest.mark.parametrize("arch,key,leaf", TREES)
+def test_convert_round_trip(arch, key, leaf):
     """reference -> port -> reference is exact, and so is port ->
-    reference -> port; per-layer entries are the stacked rows."""
-    jparams = jax.tree.map(np.asarray, j_build(j_reduced("qwen2-7b")).init(
+    reference -> port, for the dense ``units.sub_0`` tree and the ssm
+    ``layers`` tree; per-layer entries are the stacked rows."""
+    jparams = jax.tree.map(np.asarray, j_build(j_reduced(arch)).init(
         jax.random.PRNGKey(1)))
     params = params_from_reference(jparams, device="cpu")
-    assert len(params["units"]) == 2
-    np.testing.assert_array_equal(
-        params["units"][1]["attn"]["wq"].numpy(),
-        jparams["units"]["sub_0"]["attn"]["wq"][1])
+    assert isinstance(params[key], list) and len(params[key]) == 2
+    stacked, layer = jparams, params[key][1]
+    for name in leaf:
+        stacked = stacked[name]
+    for name in leaf[1 + (key == "units"):]:
+        layer = layer[name]
+    np.testing.assert_array_equal(layer.numpy(), stacked[1])
     back = params_to_reference(params)
     fa = jax.tree_util.tree_flatten_with_path(back)[0]
     fb = dict(jax.tree_util.tree_flatten_with_path(jparams)[0])
@@ -42,7 +53,7 @@ def test_convert_round_trip():
     for path, a in fa:
         assert a.shape == fb[path].shape and np.array_equal(a, fb[path])
 
-    own = build(get_reduced_config("qwen2-7b")).init(7, device="cpu")
+    own = build(get_reduced_config(arch)).init(7, device="cpu")
     again = params_from_reference(params_to_reference(own), device="cpu")
     for a, b in zip(tree_leaves(own), tree_leaves(again)):
         assert torch.equal(a, b)
