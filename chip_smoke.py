@@ -13,7 +13,12 @@ Phases (each fails loudly; any failure exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it and on edge cases, with its time, the
    plain version's, one library call's as a yardstick (never used by the
-   port; none computes either scan) and its bound;
+   port; none computes either scan) and its bound at the peak of the
+   units it runs on (K1: three TF32 products on the tensor cores; the
+   others: fp32 outside them).  K1's per-row NLL at the qwen2 and mamba2
+   heads, and K3's output at large steps, are also held against the plain
+   version run in float64: no farther than F64_RATIO x the fp32 plain
+   version;
 4. paths: two FeDepth rounds (``RoundEngine`` over ``build_lm_context``)
    on each ported family at every published width, random weights from a
    seed: qwen2-7b (depth cut to 4 layers), mamba2-370m (all 48 layers,
@@ -23,7 +28,8 @@ Phases (each fails loudly; any failure exits non-zero):
    after, must be above zero for every kernel on that path.
 
 Prints the card's name and power limit, then one JSON line of kernel
-numbers, then ``{"ok": true, "device": ...}`` as the last line.
+numbers (K1 also per head, under ``heads``, each with the launches of the
+path it serves), then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
@@ -39,14 +45,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
+# cores, dense TF32 on the tensor cores, and HBM3 bandwidth
+PEAK_FP32 = ("fp32 67 TFLOP/s", 67e12)
+PEAK_TF32 = ("tf32 495 TFLOP/s", 495e12)
 PEAK_BYTES_PER_S = 3.35e12
 
 ATTN_ATOL = 1e-4     # max abs error of K2 vs its plain version
 CE_RTOL = 1e-5       # relative error of K1's loss vs its plain version
 SCAN_ATOL = SCAN_RTOL = 1e-4   # K3 / K4 vs plain: |a - b| <= atol + rtol|b|
-F64_RATIO = 2.0      # K3 at large dt: its distance from float64 vs plain's
+F64_RATIO = 2.0      # K3 at large dt, K1 per row: distance from float64
+                     # vs the fp32 plain version's
 LOSS_RTOL = 1e-4     # a reduced model's loss, card vs CPU
 
 
@@ -54,10 +62,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak=PEAK_FP32):
+    """The least time for ``flops`` at ``peak`` (name, FLOP/s) and
+    ``nbytes`` at the memory rate: (ms, what bounds it, the peak's name)."""
+    t_ops = flops / peak[1] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, peak[0]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -144,11 +155,11 @@ def check_attention(gen, case: dict, timed: bool):
                         opts["q_offset"])
     flops = 4.0 * D * pairs * B * Hq
     nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel())
-    bms, by = bound_ms(flops, nbytes)
+    bms, by, peak = bound_ms(flops, nbytes)
     log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by})")
+        f"sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}, {peak})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, bound_peak=peak, library_ms=lib_ms)
 
 
 def check_ce(gen, case: dict, timed: bool):
@@ -176,6 +187,8 @@ def check_ce(gen, case: dict, timed: bool):
         raise AssertionError(f"chunked CE {case['name']}: {rel}")
     if not timed:
         return None
+    if case.get("f64"):
+        check_ce_against_f64(case, h, w, labels)
     err = float((loss - ref).abs())
     ms = time_ms(lambda: chunked_cross_entropy(h, w, labels), 5, warmup=1)
     plain_ms = time_ms(lambda: plain(h, w, labels), 5, warmup=1)
@@ -183,13 +196,38 @@ def check_ce(gen, case: dict, timed: bool):
     lib_ms = time_ms(lambda: F.cross_entropy(h[0] @ w, flat,
                                              ignore_index=-100), 5,
                      warmup=1)
-    flops = 2.0 * N * D * V
+    # the kernel's work: three TF32 products (small*big, big*small,
+    # big*big) of 2*N*D*V flops each, on the tensor cores
+    flops = 3 * 2.0 * N * D * V
     nbytes = 4.0 * (h.numel() + w.numel()) + 8.0 * N + 4.0
-    bms, by = bound_ms(flops, nbytes)
+    bms, by, peak = bound_ms(flops, nbytes, PEAK_TF32)
+    fp32_bms = bound_ms(2.0 * N * D * V, nbytes)[0]
     log(f"    kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-        f"matmul+F.cross_entropy {lib_ms:.3f} ms  bound {bms:.3f} ms ({by})")
+        f"matmul+F.cross_entropy {lib_ms:.3f} ms  bound {bms:.3f} ms ({by}, "
+        f"{peak}; one fp32 product outside the tensor cores: "
+        f"{fp32_bms:.3f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, bound_peak=peak, library_ms=lib_ms)
+
+
+def check_ce_against_f64(case: dict, h, w, labels) -> None:
+    """The 3xTF32 product's precision: every row's NLL from the kernel
+    sits no farther from the plain CE in float64 than F64_RATIO times the
+    fp32 plain version's largest distance (rows, not the mean, so that
+    the loss's own fp32 rounding does not decide it)."""
+    from repro_torch.kernels.chunked_ce import cross_entropy_rows, plain_rows
+    exact = plain_rows(h.double(), w.double(), labels)
+    e_kernel = float((cross_entropy_rows(h, w, labels).double()
+                      - exact).abs().max())
+    e_plain = float((plain_rows(h, w, labels).double() - exact).abs().max())
+    ok = math.isfinite(e_kernel) and e_kernel <= F64_RATIO * e_plain
+    log(f"  cross-entropy {case['name']} vs float64 plain, per row: kernel "
+        f"{e_kernel:.3e}, fp32 plain {e_plain:.3e} (largest |nll| "
+        f"{float(exact.abs().max()):.3e}; kernel <= {F64_RATIO:g} x plain) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"chunked CE {case['name']}: {e_kernel} from "
+                             f"float64, fp32 plain {e_plain}")
 
 
 def _fwd_bwd_ms(op, args) -> float:
@@ -233,12 +271,12 @@ def check_scan(what: str, kernel, plain, op, case: dict, args, flops: float,
     ms = time_ms(lambda: kernel(*args), 20)
     plain_ms = time_ms(lambda: plain(*args), 3, warmup=1)
     train_ms = _fwd_bwd_ms(op, args)
-    bms, by = bound_ms(flops, nbytes)
+    bms, by, peak = bound_ms(flops, nbytes)
     log(f"    kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  library none  "
-        f"bound {bms:.4f} ms ({by});  ops forward + backward "
+        f"bound {bms:.4f} ms ({by}, {peak});  ops forward + backward "
         f"{train_ms:.3f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, bound_peak=peak, library_ms=None)
 
 
 def check_against_f64(what: str, kernel, plain, case: dict, args) -> None:
@@ -320,7 +358,8 @@ def check_rwkv6(gen, case: dict, timed: bool):
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  The first case of each
     is the shape its path gives it, and is timed for the kernel line; K1
-    is also timed at the other paths' heads, for the log."""
+    is also timed at the other paths' heads, each kept under ``heads``
+    with the path it serves."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = dict(B=4, Tq=256, Tk=256, Hq=28, Hkv=4, D=128, causal=True,
@@ -336,17 +375,22 @@ def phase_kernels() -> dict:
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
-        dict(ce, name="slice N1024 D3584 V152064"),
+        dict(ce, name="slice N1024 D3584 V152064", path="qwen2-7b",
+             f64=True),
         dict(name="ragged N=300 D=200 V=1000", N=300, D=200, V=1000,
              ignore_every=5),
         dict(name="all labels ignored", N=130, D=64, V=300, ignore_every=1),
         dict(name="mamba2-370m tied head (embed.T) N1024 D1024 V50288",
              N=1024, D=1024, V=50288, ignore_every=7, tied=True,
-             timed=True),
+             timed=True, path="mamba2-370m", f64=True),
         dict(name="tied head, ragged N=300 D=200 V=1000", N=300, D=200,
              V=1000, ignore_every=5, tied=True),
         dict(name="rwkv6-7b head N1024 D4096 V65536", N=1024, D=4096,
-             V=65536, ignore_every=7, timed=True),
+             V=65536, ignore_every=7, timed=True, path="rwkv6-7b"),
+        dict(name="unaligned D=203 V=1001 N=333 (4-byte copies)", N=333,
+             D=203, V=1001, ignore_every=4),
+        dict(name="tied head, unaligned D=203 V=1001 N=333", N=333, D=203,
+             V=1001, ignore_every=4, tied=True),
     ]
     ssd = dict(B=4, T=256, H=32, P=64, N=128)
     ssd_cases = [
@@ -357,6 +401,10 @@ def phase_kernels() -> dict:
         dict(ssd, name="large dt (x30)", dt_scale=30.0),
         dict(name="reduced B2 T37 H8 P32 N16", B=2, T=37, H=8, P=32, N=16,
              s0=True),
+        dict(name="zamba2-1.2b P64 N64, T=133", B=2, T=133, H=8, P=64, N=64,
+             s0=True),
+        dict(name="P=40 N=24 (ragged rows, padded state)", B=1, T=50, H=3,
+             P=40, N=24, s0=True),
     ]
     wkv = dict(B=4, T=256, H=64, D=64)
     wkv_cases = [
@@ -377,7 +425,10 @@ def phase_kernels() -> dict:
         for i, case in enumerate(cases):
             rec = check(gen, case, timed=i == 0 or case.get("timed", False))
             if rec is not None:
+                head = dict(path=case.get("path"), shape=case["name"], **rec)
                 out.setdefault(key, rec)
+                if head["path"]:
+                    out[key].setdefault("heads", []).append(head)
     return out
 
 
@@ -551,10 +602,15 @@ def main() -> int:
     phase_build()
     numbers = phase_kernels()
     launches = {name: 0 for name in KERNEL_META}
+    by_path = {}
     for arch, layers, path_kernels in PATHS:
-        for name, n in phase_path(arch, layers, path_kernels).items():
+        by_path[arch] = phase_path(arch, layers, path_kernels)
+        for name, n in by_path[arch].items():
             launches[name] += n
-    # launches: the sum over the paths, each read from its own run
+    # launches: the sum over the paths, each read from its own run; K1's
+    # heads each with the launches of the path it serves
+    for head in numbers["chunked_cross_entropy"]["heads"]:
+        head["launches"] = by_path[head["path"]]["chunked_cross_entropy"]
     kernels = [dict(name=name, **KERNEL_META[name], launches=launches[name],
                     **numbers[name]) for name in KERNEL_META]
     log(f"chip_smoke: all phases passed in "

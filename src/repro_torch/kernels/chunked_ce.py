@@ -1,11 +1,13 @@
 """Chunked cross-entropy: the wrapper of the CUDA kernel ``csrc/chunked_ce.cu``.
 
 Replaces ``repro.kernels.chunked_ce.chunked_cross_entropy`` (a Pallas TPU
-kernel).  On a CUDA tensor :func:`chunked_cross_entropy` launches the
-kernel (or raises); on a CPU tensor it runs the plain version
-(:func:`repro_torch.kernels.ref.cross_entropy_logits`, re-exported here as
-``plain``).  The kernel returns the per-row NLL; the mean over valid rows
-is taken here, as the reference does after its ``pallas_call``.
+kernel).  The kernel returns the per-row NLL (:func:`cross_entropy_rows`);
+:func:`chunked_cross_entropy` takes the mean over valid rows, as the
+reference does after its ``pallas_call``.  On a CUDA tensor
+:func:`cross_entropy_rows` launches the kernel (or raises); on a CPU
+tensor it runs the plain version (:func:`repro_torch.kernels.ref.
+cross_entropy_rows`, re-exported here as ``plain_rows``; the plain mean,
+``ref.cross_entropy_logits``, is ``plain``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import cross_entropy_logits as plain
+from repro_torch.kernels.ref import cross_entropy_rows as plain_rows
 
 
 def _lib():
@@ -29,18 +32,18 @@ def _lib():
     return lib
 
 
-def chunked_cross_entropy(hidden: torch.Tensor,    # (B, T, D)
-                          lm_head: torch.Tensor,   # (D, V)
-                          labels: torch.Tensor,    # (B, T); -100 = ignore
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (mean NLL over valid labels, n_valid).  Forward only;
-    ``repro_torch.kernels.ops.cross_entropy`` adds the backward.
+def cross_entropy_rows(hidden: torch.Tensor,    # (B, T, D)
+                       lm_head: torch.Tensor,   # (D, V)
+                       labels: torch.Tensor,    # (B, T); -100 = ignore
+                       ) -> torch.Tensor:
+    """The per-token NLL, shape (B*T,), 0 where the label is ignored: what
+    the kernel writes before the mean.
 
     ``lm_head`` is either contiguous or the transpose of a contiguous
     (V, D) table (a tied head, ``embed.T``), which the kernel reads in
     place."""
     if hidden.device.type == "cpu":
-        return plain(hidden, lm_head, labels)
+        return plain_rows(hidden, lm_head, labels)
     if hidden.device.type != "cuda":
         raise ValueError(f"chunked_cross_entropy: unsupported device "
                          f"{hidden.device}")
@@ -66,22 +69,32 @@ def chunked_cross_entropy(hidden: torch.Tensor,    # (B, T, D)
     B, T, D = hidden.shape
     V = lm_head.shape[1]
     N = B * T
-    lbl = labels.reshape(N).to(torch.int32).contiguous()
-    valid = lbl >= 0
-    n = valid.sum().clamp(min=1)
+    nll = torch.empty(N, device=hidden.device, dtype=torch.float32)
     if N == 0:
-        return hidden.new_zeros(()), n
+        return nll
+    lbl = labels.reshape(N).to(torch.int32).contiguous()
     lib = _lib()
     nvt = lib.ce_num_vocab_tiles(V)
     partials = torch.empty(3 * N * nvt, device=hidden.device,
                            dtype=torch.float32)
-    nll = torch.empty(N, device=hidden.device, dtype=torch.float32)
     err = lib.ce_fwd(hidden.data_ptr(), lm_head.data_ptr(), lbl.data_ptr(),
                      partials.data_ptr(), nll.data_ptr(), N, D, V,
                      int(head_is_vd),
                      torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "chunked_cross_entropy")
     chunked_cross_entropy.launches += 1
+    return nll
+
+
+def chunked_cross_entropy(hidden: torch.Tensor,    # (B, T, D)
+                          lm_head: torch.Tensor,   # (D, V)
+                          labels: torch.Tensor,    # (B, T); -100 = ignore
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (mean NLL over valid labels, n_valid).  Forward only;
+    ``repro_torch.kernels.ops.cross_entropy`` adds the backward.  The
+    kernel's launches are counted here (``launches``)."""
+    nll = cross_entropy_rows(hidden, lm_head, labels)
+    n = (labels >= 0).sum().clamp(min=1)
     return nll.sum() / n, n
 
 

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Ports of ``repro.kernels.ref.attention``, ``cross_entropy_logits``,
-``mamba2_scan`` and ``rwkv6_scan``: the semantic ground truth.  The kernel wrappers take these for tensors on the
+``mamba2_scan`` and ``rwkv6_scan``: the semantic ground truth
+(``cross_entropy_rows`` is the per-token form of the CE, and holds the
+chunked-CE kernel to float64 on the card).  The kernel wrappers take these for tensors on the
 CPU (the tests), and ``chip_smoke.py`` holds each CUDA kernel against them
 on the card.  Nothing on the main path calls them when a card is present.
 """
@@ -59,13 +61,22 @@ def cross_entropy_logits(hidden: torch.Tensor,     # (B, T, D)
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CE computed with the full logits materialized (what the chunked
     kernel avoids).  Returns (mean loss over valid labels, n_valid)."""
-    logits = hidden.float() @ lm_head.float()
+    n = (labels >= 0).sum().clamp(min=1)
+    return cross_entropy_rows(hidden, lm_head, labels).sum() / n, n
+
+
+def cross_entropy_rows(hidden: torch.Tensor,     # (B, T, D)
+                       lm_head: torch.Tensor,    # (D, V)
+                       labels: torch.Tensor,     # (B, T); -100 = ignore
+                       ) -> torch.Tensor:
+    """Per-token NLL, shape (B*T,), 0 where the label is ignored.
+    Computes in fp32, or in float64 when hidden is float64."""
+    ct = torch.float64 if hidden.dtype == torch.float64 else torch.float32
+    logits = hidden.to(ct) @ lm_head.to(ct)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels.clamp(min=0).long()[..., None])[..., 0]
-    valid = labels >= 0
-    n = valid.sum().clamp(min=1)
-    return torch.where(valid, logz - gold, 0.0).sum() / n, n
+    return torch.where(labels >= 0, logz - gold, 0.0).reshape(-1)
 
 
 def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)

@@ -57,6 +57,11 @@ CE_CASES = [
     # (N, D, V, share of labels ignored)
     (14, 16, 37, 0.0), (130, 24, 1000, 0.3), (5, 8, 20, 1.0),
     (300, 200, 4099, 0.1),
+    # D not a multiple of 4 and V odd (4-byte copies), N not a multiple of
+    # the 128-row block tile; then all labels ignored at that shape
+    (333, 203, 1001, 0.25), (333, 203, 1001, 1.0),
+    # D not a multiple of the 32-deep k slice, 16-byte copies
+    (129, 100, 260, 0.0),
 ]
 SSD_CASES = [
     # (B, T, H, P, N, dt scale, initial state)
@@ -65,6 +70,12 @@ SSD_CASES = [
     (2, 1, 4, 64, 128, 1.0, True),
     (1, 64, 2, 64, 128, 30.0, True),    # large steps: exp(A dt) underflows
     (2, 37, 8, 32, 16, 1.0, True),      # the reduced config's P and N
+    (1, 1, 8, 32, 16, 1.0, True),
+    (2, 133, 8, 64, 64, 1.0, True),     # zamba2-1.2b's P and N
+    (2, 1, 8, 64, 64, 1.0, True),
+    (1, 50, 3, 40, 24, 1.0, True),      # a ragged row block, padded state
+    (1, 45, 2, 64, 256, 1.0, True),     # the widest state the block takes
+    (1, 30, 2, 24, 18, 1.0, True),      # N % 4 != 0: 4-byte copies of B, C
 ]
 WKV_CASES = [
     # (B, T, H, D, initial state, exp(w) overflows)
@@ -154,7 +165,8 @@ def test_rwkv6_scan_matches_plain(cuda, case):
     _assert_scan_close(outs, ref.rwkv6_scan(r, k, v, w, u, s0), case)
 
 
-@pytest.mark.parametrize("N,D,V", [(300, 200, 1000), (64, 96, 50288)])
+@pytest.mark.parametrize("N,D,V", [(300, 200, 1000), (64, 96, 50288),
+                                   (333, 203, 1001)])
 def test_tied_head_cross_entropy_matches_plain(cuda, N, D, V):
     """A tied head is ``embed.T``, a transposed view: the kernel reads the
     (V, D) table in place, and the gradient reaches ``embed``."""
@@ -179,6 +191,34 @@ def test_tied_head_cross_entropy_matches_plain(cuda, N, D, V):
     assert float(dek.abs().max()) > 0
     torch.testing.assert_close(dhk, dhp, atol=1e-6, rtol=1e-4)
     torch.testing.assert_close(dek, dep, atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.parametrize("N,D,V,ignored", [(333, 203, 1001, 0.25),
+                                           (130, 203, 1001, 1.0),
+                                           (129, 100, 260, 0.0)])
+def test_cross_entropy_op_gradients_match_plain(cuda, N, D, V, ignored):
+    """Through ``ops.cross_entropy`` (kernel forward, plain backward) on
+    the kernel's ragged tilings: the loss and both gradients equal the
+    plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(N + D)
+    h0 = torch.randn(1, N, D, device=cuda, generator=gen)
+    w0 = torch.randn(D, V, device=cuda, generator=gen) / D ** 0.5
+    labels = torch.randint(0, V, (1, N), device=cuda, generator=gen)
+    labels[torch.rand(1, N, device=cuda, generator=gen) < ignored] = -100
+    got = {}
+    for name, fn in (("kernel", ops.cross_entropy),
+                     ("plain", ref.cross_entropy_logits)):
+        h, w = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+        loss = fn(h, w, labels)[0]
+        got[name] = (loss, *torch.autograd.grad(loss * 1.7, (h, w),
+                                                allow_unused=True))
+    (lk, dhk, dwk), (lp, dhp, dwp) = got["kernel"], got["plain"]
+    assert abs(lk.item() - lp.item()) <= 1e-5 * max(abs(lp.item()), 1e-30)
+    for a, b in ((dhk, dhp), (dwk, dwp)):
+        if b is None:     # every label ignored: no path to the inputs
+            assert a is None or not a.abs().any()
+        else:
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-4)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -175,3 +175,21 @@ def test_wrappers_take_plain_version_on_cpu():
     assert torch.equal(loss, ref_loss) and int(n) == int(ref_n)
     assert (flash_attention.launches,
             chunked_cross_entropy.launches) == before
+
+
+def test_cross_entropy_rows_are_the_terms_of_the_mean():
+    """The per-token NLL entry: on the CPU its plain version, whose mean
+    over valid labels is the plain CE, with no launch; float64 in gives
+    float64 out (the yardstick of the kernel's precision on the card)."""
+    from repro_torch.kernels.chunked_ce import cross_entropy_rows
+    h, w, lbl = map(torch.tensor, _ce_inputs(4, 2, 9, 12, 40, 0.3))
+    before = chunked_cross_entropy.launches
+    rows = cross_entropy_rows(h, w, lbl)
+    assert chunked_cross_entropy.launches == before
+    assert rows.shape == (18,) and rows.dtype == torch.float32
+    assert bool((rows[lbl.reshape(-1) < 0] == 0).all())
+    loss, n = tref.cross_entropy_logits(h, w, lbl)
+    _close(rows.sum().item() / int(n), loss.item(), "mean of rows")
+    rows64 = tref.cross_entropy_rows(h.double(), w.double(), lbl)
+    assert rows64.dtype == torch.float64
+    _close(rows64.numpy(), rows.numpy(), "float64 rows")
