@@ -11,14 +11,15 @@ Phases (each fails loudly; any failure exits non-zero):
 2. build: every hand-written CUDA kernel of the port, with ``nvcc``, from
    the sources in this checkout, one ``nvcc`` per source in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes its path gives it and on edge cases, with its time, the
+   the shapes its path gives it and on edge cases, with its time (calls
+   back to back from Python, and on the card alone, ``device_ms``), the
    plain version's, one library call's as a yardstick (never used by the
    port; none computes either scan) and its bound at the peak of the
-   units it runs on (K1: three TF32 products on the tensor cores; the
-   others: fp32 outside them).  K1's per-row NLL at the qwen2 and mamba2
-   heads, and K3's output at large steps, are also held against the plain
-   version run in float64: no farther than F64_RATIO x the fp32 plain
-   version;
+   units it runs on (K1 and K2: three TF32 products on the tensor cores;
+   the scans: fp32 outside them).  K1's per-row NLL at the qwen2 and
+   mamba2 heads, K2's output at the slice's shape, K3's at large steps and
+   K4's at a decay near 1 are also held against the plain version run in
+   float64: no farther than F64_RATIO x the fp32 plain version;
 4. paths: two FeDepth rounds (``RoundEngine`` over ``build_lm_context``)
    on each ported family at every published width, random weights from a
    seed: qwen2-7b (depth cut to 4 layers), mamba2-370m (all 48 layers,
@@ -44,6 +45,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.kernels.timing import time_ms  # noqa: E402
+
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, dense TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32 = ("fp32 67 TFLOP/s", 67e12)
@@ -53,8 +56,8 @@ PEAK_BYTES_PER_S = 3.35e12
 ATTN_ATOL = 1e-4     # max abs error of K2 vs its plain version
 CE_RTOL = 1e-5       # relative error of K1's loss vs its plain version
 SCAN_ATOL = SCAN_RTOL = 1e-4   # K3 / K4 vs plain: |a - b| <= atol + rtol|b|
-F64_RATIO = 2.0      # K3 at large dt, K1 per row: distance from float64
-                     # vs the fp32 plain version's
+F64_RATIO = 2.0      # K1 per row, K2, K3 at large dt, K4 at decay ~1:
+                     # distance from float64 vs the fp32 plain version's
 LOSS_RTOL = 1e-4     # a reduced model's loss, card vs CPU
 
 
@@ -69,21 +72,6 @@ def bound_ms(flops: float, nbytes: float, peak=PEAK_FP32):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), by, peak[0]
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # --------------------------------------------------------------- phase 1
@@ -146,20 +134,33 @@ def check_attention(gen, case: dict, timed: bool):
         raise AssertionError(f"flash attention {case['name']}: {err}")
     if not timed:
         return None
+    if case.get("f64"):
+        # per row: each row's largest distance, then the largest row
+        check_against_f64(
+            "attention", lambda *a: (flash_attention(*a, **opts),),
+            lambda *a: (plain(*a, **opts),), case, (q, k, v))
     ms = time_ms(lambda: flash_attention(q, k, v, **opts), 20)
+    device_ms = time_ms(lambda: flash_attention(q, k, v, **opts), 20,
+                        fill=True)
     plain_ms = time_ms(lambda: plain(q, k, v, **opts), 10)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20)
     pairs = _attn_pairs(Tq, Tk, opts["causal"], opts["sliding_window"],
                         opts["q_offset"])
+    # the kernel's work: three TF32 products (small*big, big*small,
+    # big*big) of 4*D flops per live (q, k) pair, on the tensor cores
     flops = 4.0 * D * pairs * B * Hq
     nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel())
-    bms, by, peak = bound_ms(flops, nbytes)
-    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}, {peak})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, bound_peak=peak, library_ms=lib_ms)
+    bms, by, peak = bound_ms(3 * flops, nbytes, PEAK_TF32)
+    fp32_bms = bound_ms(flops, nbytes)[0]
+    log(f"    kernel {ms:.4f} ms (device {device_ms:.4f})  plain "
+        f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}, "
+        f"{peak}; the products in fp32 outside the tensor cores: "
+        f"{fp32_bms:.4f} ms)")
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_peak=peak, fp32_bound_ms=fp32_bms, library_ms=lib_ms)
 
 
 def check_ce(gen, case: dict, timed: bool):
@@ -191,6 +192,8 @@ def check_ce(gen, case: dict, timed: bool):
         check_ce_against_f64(case, h, w, labels)
     err = float((loss - ref).abs())
     ms = time_ms(lambda: chunked_cross_entropy(h, w, labels), 5, warmup=1)
+    device_ms = time_ms(lambda: chunked_cross_entropy(h, w, labels), 5,
+                        warmup=1, fill=True)
     plain_ms = time_ms(lambda: plain(h, w, labels), 5, warmup=1)
     flat = labels.reshape(-1)
     lib_ms = time_ms(lambda: F.cross_entropy(h[0] @ w, flat,
@@ -202,12 +205,14 @@ def check_ce(gen, case: dict, timed: bool):
     nbytes = 4.0 * (h.numel() + w.numel()) + 8.0 * N + 4.0
     bms, by, peak = bound_ms(flops, nbytes, PEAK_TF32)
     fp32_bms = bound_ms(2.0 * N * D * V, nbytes)[0]
-    log(f"    kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-        f"matmul+F.cross_entropy {lib_ms:.3f} ms  bound {bms:.3f} ms ({by}, "
+    log(f"    kernel {ms:.3f} ms (device {device_ms:.3f})  plain "
+        f"{plain_ms:.3f} ms  matmul+F.cross_entropy {lib_ms:.3f} ms  bound "
+        f"{bms:.3f} ms ({by}, "
         f"{peak}; one fp32 product outside the tensor cores: "
         f"{fp32_bms:.3f} ms)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, bound_peak=peak, library_ms=lib_ms)
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_peak=peak, library_ms=lib_ms)
 
 
 def check_ce_against_f64(case: dict, h, w, labels) -> None:
@@ -269,20 +274,23 @@ def check_scan(what: str, kernel, plain, op, case: dict, args, flops: float,
     if not timed:
         return None
     ms = time_ms(lambda: kernel(*args), 20)
+    device_ms = time_ms(lambda: kernel(*args), 20, fill=True)
     plain_ms = time_ms(lambda: plain(*args), 3, warmup=1)
     train_ms = _fwd_bwd_ms(op, args)
     bms, by, peak = bound_ms(flops, nbytes)
-    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  library none  "
-        f"bound {bms:.4f} ms ({by}, {peak});  ops forward + backward "
-        f"{train_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, bound_peak=peak, library_ms=None)
+    log(f"    kernel {ms:.4f} ms (device {device_ms:.4f})  plain "
+        f"{plain_ms:.3f} ms  library none  bound {bms:.4f} ms ({by}, "
+        f"{peak});  ops forward + backward {train_ms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_peak=peak, library_ms=None)
 
 
 def check_against_f64(what: str, kernel, plain, case: dict, args) -> None:
-    """Where fp32 rounding alone exceeds the scan tolerance: the kernel
-    must sit no farther than F64_RATIO times the fp32 plain version's
-    distance from the plain version run in float64."""
+    """The kernel (outputs as a tuple) must sit no farther than F64_RATIO
+    times the fp32 plain version's distance from the plain version run in
+    float64: for K2's split products, and where fp32 rounding alone
+    exceeds a scan's tolerance."""
     exact = plain(*(a.double() for a in args))
     e_kernel = _max_err([t.double() for t in kernel(*args)], exact)
     e_plain = _max_err([t.double() for t in plain(*args)], exact)
@@ -345,6 +353,15 @@ def check_rwkv6(gen, case: dict, timed: bool):
     u = torch.randn(H, D, device=dev, generator=gen) * 0.1
     s0 = (torch.randn(B, H, D, D, device=dev, generator=gen)
           if case.get("s0") else torch.zeros(B, H, D, D, device=dev))
+    if case.get("decay_one"):
+        # w << 0: the decay exp(-exp(w)) is ~1 - 3e-4, so the state sums
+        # every step and y grows to ~1e2, where fp32 rounding alone
+        # exceeds the tolerance: held against float64 here, and against
+        # the plain version with v shrunk 16x (y and the state with it)
+        w = w - 8.0
+        check_against_f64("rwkv6 scan", rwkv6_scan, plain, case,
+                          (r, k, v, w, u, s0))
+        v = v / 16.0
     # per (b, h, t), the least work: r S_{t-1} (2 flops per state
     # element), S = d*S + k v (3 per element), and the bonus term
     # v_e * sum_d r_d u_d k_d (5 per row); bytes: r, k, v, w, y, u and the
@@ -365,13 +382,27 @@ def phase_kernels() -> dict:
     attn = dict(B=4, Tq=256, Tk=256, Hq=28, Hkv=4, D=128, causal=True,
                 window=0, q_offset=0)
     attn_cases = [
-        dict(attn, name="slice B4 T256 Hq28 Hkv4 D128 causal"),
+        dict(attn, name="slice B4 T256 Hq28 Hkv4 D128 causal", f64=True),
         dict(attn, name="ragged Tk=200", Tk=200),
         dict(attn, name="sliding window 64", window=64),
         dict(attn, name="non-causal Tq=100 Tk=300", Tq=100, Tk=300,
              causal=False),
         dict(attn, name="q_offset 40, Tq=64", Tq=64, q_offset=40),
         dict(attn, name="D=64 group 2", Hq=8, Hkv=4, D=64),
+        # the tensor-core tiling; each case draws from its own seed, so
+        # that the other kernels' inputs stay as they were
+        dict(attn, name="D=120 group 7, window 33, q_offset 80, Tq=70 "
+             "Tk=150", Tq=70, Tk=150, Hq=7, Hkv=1, D=120, window=33,
+             q_offset=80, seed=1),
+        dict(attn, name="D=36 (reduced), Tq=Tk=45", B=2, Tq=45, Tk=45, Hq=4,
+             Hkv=2, D=36, seed=2),
+        dict(attn, name="Tq=1, q_offset 4000, Tk=4001", B=2, Tq=1, Tk=4001,
+             q_offset=4000, seed=3),
+        dict(attn, name="Tq=77 Tk=93 q_offset 16 (no tile multiple)", Tq=77,
+             Tk=93, q_offset=16, seed=4),
+        dict(attn, name="window 100 across tile edges", window=100, seed=5),
+        dict(attn, name="D=30 (4-byte copies), q_offset 20", B=1, Tq=20,
+             Tk=40, Hq=2, Hkv=1, D=30, q_offset=20, seed=6),
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
@@ -413,7 +444,14 @@ def phase_kernels() -> dict:
         dict(wkv, name="initial state, T=77", T=77, s0=True),
         dict(wkv, name="T=1, initial state", T=1, s0=True),
         dict(wkv, name="exp(w) overflows", overflow=True),
+        dict(wkv, name="decay ~1 (w - 8), initial state", decay_one=True,
+             s0=True),
         dict(name="reduced B2 T37 H4 D32", B=2, T=37, H=4, D=32, s0=True),
+        dict(name="reduced D32 at T=256", B=2, T=256, H=4, D=32, s0=True),
+        dict(name="D=100 (padded rows), T=50", B=1, T=50, H=2, D=100,
+             s0=True),
+        dict(name="D=30 (4-byte copies), T=40", B=1, T=40, H=3, D=30,
+             s0=True),
     ]
     out = {}
     log("kernels vs plain PyTorch on the card:")
@@ -423,7 +461,9 @@ def phase_kernels() -> dict:
             ("mamba2_scan", check_mamba2, ssd_cases),
             ("rwkv6_scan", check_rwkv6, wkv_cases)):
         for i, case in enumerate(cases):
-            rec = check(gen, case, timed=i == 0 or case.get("timed", False))
+            g = (torch.Generator(device="cuda").manual_seed(case["seed"])
+                 if "seed" in case else gen)
+            rec = check(g, case, timed=i == 0 or case.get("timed", False))
             if rec is not None:
                 head = dict(path=case.get("path"), shape=case["name"], **rec)
                 out.setdefault(key, rec)

@@ -2,10 +2,12 @@
 
 Ports of ``repro.kernels.ref.attention``, ``cross_entropy_logits``,
 ``mamba2_scan`` and ``rwkv6_scan``: the semantic ground truth
-(``cross_entropy_rows`` is the per-token form of the CE, and holds the
-chunked-CE kernel to float64 on the card).  The kernel wrappers take these for tensors on the
-CPU (the tests), and ``chip_smoke.py`` holds each CUDA kernel against them
-on the card.  Nothing on the main path calls them when a card is present.
+(``cross_entropy_rows`` is the per-token form of the CE; it, ``attention``
+and the scans compute in float64 for float64 inputs, which holds the
+kernels to float64 on the card).  The kernel wrappers take these for
+tensors on the CPU (the tests), and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.  Nothing on the main path calls them
+when a card is present.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ def attention(q: torch.Tensor,          # (B, Tq, Hq, D)
               scale: Optional[float] = None) -> torch.Tensor:
     """GQA attention with optional causal mask / sliding window.
 
-    Returns (B, Tq, Hq, D) in q's dtype; softmax in fp32."""
+    Returns (B, Tq, Hq, D) in q's dtype.  Computes in fp32, or in float64
+    when q is float64 (which holds the kernel to float64 on the card)."""
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv:
@@ -32,9 +35,10 @@ def attention(q: torch.Tensor,          # (B, Tq, Hq, D)
     rep = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
 
-    qf = q.float() * scale
-    kf = k.float()
-    vf = v.float()
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(ct) * scale
+    kf = k.to(ct)
+    vf = v.to(ct)
     if rep > 1:
         kf = kf.repeat_interleave(rep, dim=2)
         vf = vf.repeat_interleave(rep, dim=2)
@@ -174,13 +178,15 @@ def rwkv6_scan(r: torch.Tensor,      # (B, T, H, D) receptance
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV6, sequential over time: S_t = diag(d_t) S_{t-1} + k_tᵀ v_t,
     y_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t), d_t = exp(−exp(w_t)).
-    Returns (y in r's dtype, final state in fp32)."""
+    Computes in fp32, or in float64 when r is float64.  Returns (y in r's
+    dtype, final state in the compute dtype)."""
     Bsz, T, H, D = r.shape
-    rf, kf, vf = r.float(), k.float(), v.float()
-    decay = torch.exp(-torch.exp(w.float()))
-    uf = u.float()[None, :, :, None]
-    S = (torch.zeros(Bsz, H, D, D, device=r.device) if initial_state is None
-         else initial_state.float())
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rf, kf, vf = r.to(ct), k.to(ct), v.to(ct)
+    decay = torch.exp(-torch.exp(w.to(ct)))
+    uf = u.to(ct)[None, :, :, None]
+    S = (torch.zeros(Bsz, H, D, D, device=r.device, dtype=ct)
+         if initial_state is None else initial_state.to(ct))
     ys = []
     for t in range(T):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]         # (B,H,D,D)

@@ -7,7 +7,9 @@ card (which has no JAX) run them with
 
 Each kernel is held against its plain PyTorch version on ragged shapes
 (K2 max abs error <= 1e-4, K1 loss relative error <= 1e-5, K3 and K4
-|a - b| <= 1e-4 + 1e-4 |b| on the output and the final state); a tied
+|a - b| <= 1e-4 + 1e-4 |b| on the output and the final state); K2's
+3xTF32 products and K4 at a decay near 1 sit no farther from the plain
+version in float64 than 2x the fp32 plain version; a tied
 head (``embed.T``) runs through the CE op with its loss and gradients
 equal to the plain version's; one FeDepth round of each ported family on
 the card is held against the same round on the CPU (atol 1e-4, rtol 1e-3:
@@ -52,6 +54,17 @@ ATTN_CASES = [
     (2, 100, 100, 4, 2, 64, True, 5, 0),
     (1, 70, 150, 7, 1, 120, True, 33, 80),
     (1, 65, 65, 28, 4, 128, False, 0, 0),
+    # the tensor-core tiling: D 36 (reduced) and 100 zero-padded in shared
+    # memory; D 30 with 4-byte copies; Tq = 1 at a large q_offset; Tq and
+    # Tk no multiple of the 64-row q or 32-row kv tile; windows across
+    # tile edges
+    (2, 45, 45, 4, 2, 36, True, 0, 0),
+    (1, 33, 57, 4, 4, 100, False, 0, 0),
+    (1, 20, 40, 2, 1, 30, True, 0, 20),
+    (2, 1, 300, 8, 2, 128, True, 0, 299),
+    (1, 77, 93, 28, 4, 128, True, 0, 16),
+    (2, 256, 256, 7, 1, 128, True, 100, 0),
+    (1, 130, 130, 4, 1, 64, True, 31, 3),
 ]
 CE_CASES = [
     # (N, D, V, share of labels ignored)
@@ -84,6 +97,12 @@ WKV_CASES = [
     (2, 1, 4, 64, True, False),
     (1, 64, 2, 64, True, True),
     (2, 37, 4, 32, True, False),
+    # the 8 x 4 state tiles: the reduced D 32 at T 256; D 100 (rows padded
+    # to 128); D 30 (4-byte copies, columns padded to 32); a ragged chunk
+    (2, 256, 4, 32, True, False),
+    (1, 50, 2, 100, True, False),
+    (1, 40, 3, 30, True, False),
+    (1, 33, 5, 64, True, False),
 ]
 SCAN_TOL = 1e-4
 
@@ -163,6 +182,47 @@ def test_rwkv6_scan_matches_plain(cuda, case):
     outs = rwkv6_scan(r, k, v, w, u, s0)
     assert rwkv6_scan.launches == before + 1
     _assert_scan_close(outs, ref.rwkv6_scan(r, k, v, w, u, s0), case)
+
+
+def _f64_distances(kernel, plain, args):
+    """(kernel's, fp32 plain version's) largest distance from the plain
+    version run in float64, over every output."""
+    exact = plain(*(a.double() for a in args))
+    return tuple(max(float((x.double() - e).abs().max())
+                     for x, e in zip(fn(*args), exact))
+                 for fn in (kernel, plain))
+
+
+@pytest.mark.parametrize("case", [(2, 128, 128, 14, 2, 128, True, 0, 0),
+                                  (1, 70, 150, 7, 1, 120, True, 33, 80)])
+def test_flash_attention_as_close_to_float64_as_fp32(cuda, case):
+    """The 3xTF32 split keeps fp32 accuracy: no farther from float64 than
+    2x the fp32 plain version."""
+    B, Tq, Tk, Hq, Hkv, D, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(Tq + Tk)
+    q = torch.randn(B, Tq, Hq, D, device=cuda, generator=gen)
+    k, v = (torch.randn(B, Tk, Hkv, D, device=cuda, generator=gen)
+            for _ in range(2))
+    opts = dict(causal=causal, sliding_window=window, q_offset=q_offset)
+    e_kernel, e_plain = _f64_distances(
+        lambda *a: (flash_attention(*a, **opts),),
+        lambda *a: (ref.attention(*a, **opts),), (q, k, v))
+    assert e_kernel <= 2.0 * e_plain, (case, e_kernel, e_plain)
+
+
+def test_rwkv6_scan_decay_near_one_against_float64(cuda):
+    """w << 0: the decay is ~1, the state sums all 256 steps, and the
+    kernel stays no farther from float64 than 2x the fp32 plain scan."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, T, H, D = 2, 256, 4, 64
+    r, k, v = (torch.randn(B, T, H, D, device=cuda, generator=gen)
+               for _ in range(3))
+    w = torch.randn(B, T, H, D, device=cuda, generator=gen) * 0.5 - 8.5
+    u = torch.randn(H, D, device=cuda, generator=gen) * 0.1
+    s0 = torch.randn(B, H, D, D, device=cuda, generator=gen)
+    e_kernel, e_plain = _f64_distances(rwkv6_scan, ref.rwkv6_scan,
+                                       (r, k, v, w, u, s0))
+    assert e_kernel <= 2.0 * e_plain, (e_kernel, e_plain)
 
 
 @pytest.mark.parametrize("N,D,V", [(300, 200, 1000), (64, 96, 50288),
