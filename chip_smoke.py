@@ -26,7 +26,17 @@ Phases (each fails loudly; any failure exits non-zero):
    tied head) and rwkv6-7b (depth cut to 4 layers).  Before each, a
    reduced model's loss on the card is held against the CPU's.  The
    kernels' launch counts, reset just before each path and read just
-   after, must be above zero for every kernel on that path.
+   after, must be above zero for every kernel on that path;
+5. the paper's own experiment: PreResNet-20 at its published widths on
+   CIFAR-10's shape (synthetic 32 x 32 x 3 images, 10 classes, 50 000 /
+   10 000), 100 clients over a balanced Dirichlet (alpha 1) split,
+   participation 0.1, batch 64: 2 rounds each of ``fedepth`` and
+   ``m-fedepth`` under ``fair``, ``fedepth`` under ``surplus`` (r = 2
+   clients run MKD, M = 2) and ``fedavg`` (x min r) under ``fair``,
+   through ``build_federated`` -> ``build_context`` -> ``RoundEngine``.
+   Before them the full model's loss and gradient norm on the card are
+   held against the CPU's.  This path reaches none of the port's kernels
+   (convs are cuDNN's): its launch counts must read 0.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (K1 also per head, under ``heads``, each with the launches of the
@@ -513,6 +523,69 @@ def check_reduced_on_card(arch: str) -> None:
         raise AssertionError(f"{arch}: card and CPU disagree ({rel})")
 
 
+def _instrument(engine):
+    """Record each round's cohort and its peak device memory
+    (``max_memory_allocated``, reset after each round)."""
+    import torch
+    cohorts, peaks = [], []
+    sample = engine.sampler.sample
+
+    def recording_sample(c, rd):
+        ids = sample(c, rd)
+        cohorts.append([int(k) for k in ids])
+        return ids
+
+    engine.sampler.sample = recording_sample
+    run_round = engine.run_round
+
+    def measured_round(state, rd, batch_fn):
+        out = run_round(state, rd, batch_fn)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    engine.run_round = measured_round
+    return cohorts, peaks
+
+
+def _run_counted(engine):
+    """``engine.run(eval_every=1)`` with every kernel's launch count set
+    to 0 just before and read just after; returns (state, history,
+    launches, wall seconds)."""
+    import torch
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, history = engine.run(eval_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, history, {name: fn.launches
+                            for name, fn in counters.items()}, wall
+
+
+def _check_run(name, loss, history, state, multi_block) -> None:
+    """A finite test loss, 2 records with accuracies in [0, 1], a cohort
+    client with two blocks or more (unless ``multi_block`` is None: a
+    method without blocks), finite server parameters."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    if not math.isfinite(loss):
+        raise AssertionError(f"{name}: non-finite test loss {loss}")
+    if len(history) != 2 or not all(
+            r.accuracy is not None and 0.0 <= r.accuracy <= 1.0
+            for r in history):
+        raise AssertionError(f"{name}: bad history {history}")
+    if multi_block is not None and not multi_block:
+        raise AssertionError(f"{name}: no cohort client trained two "
+                             f"blocks or more")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(state)):
+        raise AssertionError(f"{name}: non-finite server parameters")
+
+
 def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
     """Two FeDepth rounds of ``arch`` at every published width with
     ``layers`` layers; returns this path's launch counts."""
@@ -523,7 +596,6 @@ def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
     from repro_torch.fl.registry import get_strategy
     from repro_torch.fl.seq import build_lm_context, build_seq_data
     from repro_torch.models import build
-    from repro_torch.tree import tree_leaves
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=layers)
@@ -542,36 +614,8 @@ def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
         log(f"client {cid} (r={ctx.ratios[cid]:.3f}): "
             + schedule_summary(dec, ctx.mem).replace("\n", " |"))
     engine = RoundEngine(get_strategy("fedepth"), ctx)
-    cohorts = []
-    sample = engine.sampler.sample
-
-    def recording_sample(c, rd):
-        ids = sample(c, rd)
-        cohorts.append([int(k) for k in ids])
-        return ids
-
-    engine.sampler.sample = recording_sample
-    peaks = []
-    run_round = engine.run_round
-
-    def measured_round(state, rd, batch_fn):
-        out = run_round(state, rd, batch_fn)
-        torch.cuda.synchronize()
-        peaks.append(torch.cuda.max_memory_allocated())
-        torch.cuda.reset_peak_memory_stats()
-        return out
-
-    engine.run_round = measured_round
-    counters = _launch_counters()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    state, history = engine.run(eval_every=1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    cohorts, peaks = _instrument(engine)
+    state, history, launches, wall = _run_counted(engine)
     with torch.no_grad():
         loss = float(build(cfg).loss_fn(state, {"tokens": data.x_test[:4],
                                                 "labels": data.y_test[:4]})[0])
@@ -585,18 +629,9 @@ def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
             f"{rec.down_bytes}  max_memory_allocated "
             f"{peak / 2**30:.2f} GiB")
     log(f"path {cfg.name}: 2 rounds in {wall:.1f} s, launches {launches}")
-    if not math.isfinite(loss):
-        raise AssertionError(f"{cfg.name}: non-finite test loss {loss}")
-    if len(history) != 2 or not all(
-            r.accuracy is not None and 0.0 <= r.accuracy <= 1.0
-            for r in history):
-        raise AssertionError(f"{cfg.name}: bad history {history}")
-    if not any(len(ctx.decomps[k].blocks) >= 2
-               for ids in cohorts for k in ids):
-        raise AssertionError(f"{cfg.name}: no cohort client trained two "
-                             f"blocks or more")
-    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(state)):
-        raise AssertionError(f"{cfg.name}: non-finite server parameters")
+    _check_run(cfg.name, loss, history, state,
+               any(len(ctx.decomps[k].blocks) >= 2
+                   for ids in cohorts for k in ids))
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{cfg.name}: kernels {missing} were not "
@@ -604,6 +639,110 @@ def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
     del state, engine, ctx, data
     torch.cuda.empty_cache()
     return launches
+
+
+# --------------------------------------------------------------- phase 5
+IMAGE_RUNS = (
+    # (method, scenario) of the paper's experiment on PreResNet-20
+    ("fedepth", "fair"), ("m-fedepth", "fair"), ("fedepth", "surplus"),
+    ("fedavg", "fair"))
+
+
+def check_resnet20_on_card() -> None:
+    """Full PreResNet-20: the CE loss and its gradient norm on the card
+    (cuDNN, TF32 off) equal the CPU's, from the same parameters and
+    batch.  The batch is the first seeded one whose ReLU inputs take the
+    same branch on both devices (``repro_torch.testing.relu``: an input
+    within rounding of 0 may not, and then the two gradients differ there
+    by design, not by a fault)."""
+    import torch
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.models import resnet
+    from repro_torch.testing.relu import resnet_gradients_on
+    params = resnet.init(0, CONFIG, device="cpu")
+    seed, out = resnet_gradients_on(params, CONFIG,
+                                    log=lambda m: log(f"  {m}"))
+    got = {dev: (out[dev][1].item(), float(torch.sqrt(sum(
+        (g.double() ** 2).sum() for g in out[dev][2:])))) for dev in out}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["cuda"], got["cpu"]))
+    ok = rel <= LOSS_RTOL
+    log(f"  {CONFIG.name} (batch seed {seed}): loss {got['cuda'][0]:.6f} "
+        f"(card) vs {got['cpu'][0]:.6f} (cpu), grad norm "
+        f"{got['cuda'][1]:.6f} vs {got['cpu'][1]:.6f}, rel err {rel:.3e} "
+        f"(tol {LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"PreResNet-20: card and CPU disagree ({rel})")
+
+
+def phase_image(data, method: str, scenario: str) -> dict:
+    """Two rounds of ``method`` under ``scenario`` on full-width
+    PreResNet-20; returns the run's launch counts (all must be 0)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.fl.engine import RoundEngine, SimConfig, build_context
+    from repro_torch.fl.registry import get_strategy
+    from repro_torch.models import resnet
+
+    name = f"{method} ({scenario})"
+    sim = SimConfig(rounds=2, participation=0.1, lr=0.05, momentum=0.9,
+                    local_steps=1, batch_size=64, scenario=scenario, seed=0)
+    ctx = build_context(data, sim, model_cfg=CONFIG)
+    engine = RoundEngine(get_strategy(method), ctx)
+    cohorts, peaks = _instrument(engine)
+    state, history, launches, wall = _run_counted(engine)
+    cfg = getattr(engine.strategy, "sub_cfg", CONFIG)
+    with torch.no_grad():
+        loss = float(F.cross_entropy(resnet.apply(state, cfg,
+                                                  data.x_test[:512]),
+                                     data.y_test[:512]))
+    log(f"image run {name}: {cfg.name} widths {cfg.widths()} blocks "
+        f"{cfg.num_blocks}, test loss after 2 rounds {loss:.4f}")
+    fedepth = method != "fedavg"
+    mkd = []
+    for rd, ids in enumerate(cohorts):
+        if fedepth:
+            ran_mkd = [k for k in ids if ctx.surplus[k] > 1]
+            mkd += ran_mkd
+            work = (f"blocks per client "
+                    f"{[len(ctx.decomps[k].blocks) for k in ids]}, MKD "
+                    f"clients {ran_mkd}")
+        else:
+            work = f"every client trains the {cfg.name} subnet whole"
+        log(f"round {rd + 1}: cohort {ids}, {work}")
+    for rec, peak in zip(history, peaks):
+        log(f"round {rec.round}: accuracy {rec.accuracy}  seconds "
+            f"{rec.seconds:.2f}  up bytes {rec.comm_bytes}  down bytes "
+            f"{rec.down_bytes}  max_memory_allocated "
+            f"{peak / 2**30:.3f} GiB")
+    log(f"image run {name}: 2 rounds in {wall:.1f} s, launches {launches}")
+    _check_run(name, loss, history, state,
+               any(len(ctx.decomps[k].blocks) >= 2
+                   for ids in cohorts for k in ids) if fedepth else None)
+    if scenario == "surplus" and not mkd:
+        raise AssertionError(f"{name}: no cohort client ran MKD")
+    launched = {k: n for k, n in launches.items() if n}
+    if launched:
+        raise AssertionError(f"{name}: the image path launched kernels "
+                             f"{launched}")
+    del state, engine, ctx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_images() -> None:
+    from repro_torch.fl.data import build_federated
+    log("paper experiment: PreResNet-20 on CIFAR-10's shape")
+    check_resnet20_on_card()
+    t0 = time.perf_counter()
+    data = build_federated(num_clients=100, partition="dirichlet", alpha=1.0,
+                           balanced=True, n_train=50_000, n_test=10_000,
+                           num_classes=10, image_size=32, seed=0)
+    log(f"data: {len(data.x)} train / {len(data.x_test)} test images "
+        f"{tuple(data.x.shape[1:])} over {len(data.client_indices)} "
+        f"clients in {time.perf_counter() - t0:.1f} s")
+    for method, scenario in IMAGE_RUNS:
+        phase_image(data, method, scenario)
 
 
 PATHS = (
@@ -647,6 +786,7 @@ def main() -> int:
         by_path[arch] = phase_path(arch, layers, path_kernels)
         for name, n in by_path[arch].items():
             launches[name] += n
+    phase_images()
     # launches: the sum over the paths, each read from its own run; K1's
     # heads each with the launches of the path it serves
     for head in numbers["chunked_cross_entropy"]["heads"]:

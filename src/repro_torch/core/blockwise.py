@@ -16,10 +16,14 @@ other tensor with its input.  So a cohort's payloads share their frozen
 tensors with the server state, and the next client in the cohort starts
 from the untouched broadcast.
 
-The LM runner covers the dense and the attention-free (``ssm``: mamba2,
-rwkv6) families.  ResNet / ViT / whisper / hybrid runners, ``head="aux"``
-(m-FeDepth) and the stacked (vectorized) execution wait for later
-slices.
+Two head strategies (paper §Methodology), on the ResNet runner:
+``head="skip"`` (FeDepth: the block output zero-padded and pooled into
+the shared classifier) and ``head="aux"`` (m-FeDepth: a tiny auxiliary
+classifier per block exit; the final block trains the real head).  The
+LM runner covers the dense and the attention-free (``ssm``: mamba2,
+rwkv6) families with ``head="skip"``.  The ViT / whisper / hybrid
+runners, m-FeDepth on LMs and the stacked (vectorized) execution wait
+for later slices.
 """
 from __future__ import annotations
 
@@ -27,9 +31,10 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.decomposition import Decomposition
-from repro_torch.models import common
+from repro_torch.models import common, resnet as resnet_mod
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -105,6 +110,58 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
                        split, merge, prefix_stable=not cfg.tie_embeddings)
 
 
+# ---- ResNet adapter -------------------------------------------------------
+def resnet_runner(cfg, head: str = "skip") -> BlockRunner:
+    """Runner over PreResNet: the stem is the embed, the residual blocks
+    (``params["blocks"]``, a list: stages differ in width) the units."""
+    n = cfg.num_blocks
+
+    def embed(params, batch):
+        return resnet_mod.stem(params, batch["images"])
+
+    def apply_units(params, z, lo, hi):
+        return resnet_mod.forward_blocks(params, cfg, z, lo, hi)
+
+    def head_loss(params, z, batch, block_idx):
+        # m-FeDepth: auxiliary classifiers at intermediate exits, but the
+        # FINAL block supervises the REAL head (otherwise the global
+        # classifier never receives gradient)
+        if head == "aux" and "aux_heads" in params and block_idx < n - 1:
+            ah = params["aux_heads"][f"b{block_idx}"]
+            logits = z.mean((2, 3)) @ ah["w"] + ah["b"]
+        else:
+            logits = resnet_mod.head_from_block(params, cfg, z, block_idx)
+        return _ce_logits(logits, batch["labels"])
+
+    def split(params, lo, hi):
+        train = {"blocks": params["blocks"][lo:hi],
+                 "head_norm": params["head_norm"],
+                 "classifier": params["classifier"]}
+        if "aux_heads" in params:
+            train["aux_heads"] = params["aux_heads"]
+        if lo == 0:
+            train["stem"] = params["stem"]
+        return train
+
+    def merge(params, train, lo: int = None, hi: int = None):
+        # a splice of exactly [lo, hi) into the block list, head / stem
+        # keys passed through; the input tree is never written
+        out = dict(params)
+        out["blocks"] = (list(params["blocks"][:lo]) + list(train["blocks"])
+                         + list(params["blocks"][hi:]))
+        for k in train:
+            if k != "blocks":
+                out[k] = train[k]
+        return out
+
+    return BlockRunner(n, embed, apply_units, head_loss, split, merge)
+
+
+def _ce_logits(logits, labels):
+    """Mean cross-entropy of (B, C) logits, in fp32."""
+    return F.cross_entropy(logits.float(), labels.long())
+
+
 # --------------------------------------------------------------------------
 # the depth-wise sequential client update (paper Algorithm 1, ClientUpdate)
 # --------------------------------------------------------------------------
@@ -125,27 +182,40 @@ def _prox_term(train, anchor, prox_mu: float):
     return 0.5 * prox_mu * sq
 
 
-def _sgd_momentum_step(runner, params, train, vel, anchor, z_in, batch,
-                       lo, hi, j, *, lr, momentum, prox_mu):
-    """vel <- momentum * vel + grad; train <- train - lr * vel, in place on
-    the client's private ``train`` / ``vel`` tensors.  A leaf the loss
-    does not reach (the embedding of an untied LM, whose lookup feeds the
-    frozen z_in) has zero gradient, as in the reference."""
-    leaves = tree_leaves(train)
+def sgd_momentum_(loss_fn: Callable[[], torch.Tensor], params, vel, *,
+                  lr: float, momentum: float) -> None:
+    """One SGD-momentum step, in place on the caller's private trees:
+    vel <- momentum * vel + grad(loss_fn()); params <- params - lr * vel.
+    A leaf the loss does not reach (the embedding of an untied LM, whose
+    lookup feeds the frozen z_in) has zero gradient, as in the
+    reference."""
+    leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
-    loss = block_loss_fn(runner, params, train, z_in, batch, lo, hi, j)
-    if prox_mu > 0:
-        loss = loss + _prox_term(train, anchor, prox_mu)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    try:
+        grads = torch.autograd.grad(loss_fn(), leaves, allow_unused=True)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
     with torch.no_grad():
         for t, v, g in zip(leaves, tree_leaves(vel), grads):
             v.mul_(momentum)
             if g is not None:
                 v.add_(g)
             t.sub_(lr * v)
-    for t in leaves:
-        t.requires_grad_(False)
+
+
+def _sgd_momentum_step(runner, params, train, vel, anchor, z_in, batch,
+                       lo, hi, j, *, lr, momentum, prox_mu):
+    """The block step's update on the client's private ``train`` /
+    ``vel``."""
+    def loss():
+        out = block_loss_fn(runner, params, train, z_in, batch, lo, hi, j)
+        if prox_mu > 0:
+            out = out + _prox_term(train, anchor, prox_mu)
+        return out
+
+    sgd_momentum_(loss, train, vel, lr=lr, momentum=momentum)
     return train, vel
 
 

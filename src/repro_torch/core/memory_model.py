@@ -13,16 +13,18 @@ width; they are validated against the paper's Table 1 depth-vs-width
 relation in tests/benchmarks.
 
 The port's own copy of ``repro.core.memory_model`` for the transformer
-families (``lm_memory`` and its types; pure Python, the formulas
-unchanged — tests/test_torch_core.py holds it to the reference on every
-architecture).  The ResNet and ViT pricing wait for their slices.
+families (``lm_memory``) and PreResNet (``resnet_memory``, the paper's
+Table 1), with their types; pure Python, the formulas unchanged —
+tests/test_torch_model.py and tests/test_torch_resnet.py hold them to the
+reference.  The ViT pricing waits for its slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Union
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.preresnet20 import ResNetConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,3 +229,55 @@ def lm_memory(cfg: ModelConfig, batch: int, seq: int, *,
     head = UnitCost("head", head_p, head_act, 4 * B * T,
                     flops=2 * T * D * V)
     return ModelMemory(units, embed, head, batch=batch)
+
+
+# --------------------------------------------------------------------------
+# PreResNet (paper Table 1)
+# --------------------------------------------------------------------------
+def resnet_memory(cfg: ResNetConfig, batch: int, *,
+                  param_bytes: int = 4, act_bytes: int = 4) -> ModelMemory:
+    from repro_torch.models.resnet import block_channels
+    H = W = cfg.image_size
+    units = []
+    size = H * W
+    for i, (cin, cout, stride) in enumerate(block_channels(cfg)):
+        in_size = size
+        if stride == 2:
+            size //= 4
+        p = (9 * cin * cout + 9 * cout * cout + 2 * (cin + cout)
+             + (cin * cout if (stride != 1 or cin != cout) else 0))
+        # backward holds the block input (old resolution) plus the two
+        # stored conv inputs/outputs at the output resolution (pre-act
+        # ResNet: norm/relu outputs recomputed from the stored input)
+        act = act_bytes * batch * (in_size * cin + 2 * size * cout)
+        out = act_bytes * batch * size * cout
+        # two 3x3 convs at the output resolution (+ the 1x1 shortcut)
+        fl = 2 * size * (9 * cin * cout + 9 * cout * cout
+                         + (cin * cout if (stride != 1 or cin != cout)
+                            else 0))
+        units.append(UnitCost(f"B{i + 1}", p * param_bytes, act, out,
+                              flops=fl))
+    w0, w_last = cfg.widths()[0], cfg.widths()[-1]
+    # stem holds only the input image; its OUTPUT is priced as B1's input
+    embed = UnitCost("stem", 9 * cfg.in_channels * w0 * param_bytes,
+                     act_bytes * batch * H * W * cfg.in_channels,
+                     act_bytes * batch * H * W * w0,
+                     flops=2 * H * W * 9 * cfg.in_channels * w0)
+    head = UnitCost("head", (w_last * cfg.num_classes + cfg.num_classes
+                             + 2 * w_last) * param_bytes,
+                    act_bytes * batch * (w_last + cfg.num_classes),
+                    act_bytes * batch * cfg.num_classes,
+                    flops=2 * w_last * cfg.num_classes)
+    return ModelMemory(units, embed, head, batch=batch)
+
+
+def model_memory(cfg: Union[ModelConfig, ResNetConfig], batch: int,
+                 seq: Optional[int] = None, **kw) -> ModelMemory:
+    if isinstance(cfg, ModelConfig):
+        if seq is None:
+            raise ValueError("an LM config is priced at a sequence length")
+        return lm_memory(cfg, batch, seq, **kw)
+    if isinstance(cfg, ResNetConfig):
+        return resnet_memory(cfg, batch, **kw)
+    raise TypeError(f"no memory model for {type(cfg).__name__} in the "
+                    f"port yet")

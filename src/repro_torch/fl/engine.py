@@ -4,6 +4,12 @@ One loop owns cohort sampling, the paper's budget / decomposition
 assignment, eval cadence and a structured history of
 ``RoundRecord(round, accuracy, seconds, comm_bytes)``.
 
+Budget protocol (paper §Memory budgets): client memory budgets are the
+width-ratio-equivalent training footprints of PreResNet at batch 128,
+r uniformly distributed over the scenario's tuple (``SCENARIOS``; the
+full protocol is ``docs/budget_protocol.md``).  :func:`build_context`
+prepares the paper's image protocol; ``fl/seq.py`` the LM one.
+
 This slice runs the sequential scheduler with ``codec="none"``,
 ``downlink="full"``, no faults, no checkpoints and no telemetry.  The
 reference's other knobs are accepted by name and raise
@@ -18,7 +24,10 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.decomposition import width_equivalent_budget
+from repro_torch.configs.preresnet20 import ResNetConfig
+from repro_torch.core.decomposition import decompose, width_equivalent_budget
+from repro_torch.core.memory_model import resnet_memory
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.sampling import (CohortSampler, SequentialScheduler,
                                      UniformSampler)
 from repro_torch.fl.strategy import Context, FLStrategy, wire_bytes
@@ -77,6 +86,33 @@ def scenario_budgets(mem, ratios) -> np.ndarray:
                 for i in range(len(mem.units)))
     return np.array([max(width_equivalent_budget(mem, min(r, 1.0))
                          * BUDGET_SLACK, floor) for r in ratios])
+
+
+def build_context(data, sim: SimConfig, *,
+                  model_cfg: Optional[ResNetConfig] = None,
+                  device: DeviceLike = None, population=None) -> Context:
+    """The per-experiment context of the paper's image protocol: ratios,
+    byte budgets, FeDepth decompositions and MKD flags (M = 2 for r >= 2),
+    on ``device`` (the GPU unless ``"cpu"``; the data must already live
+    there).  ``population=`` (lazy client populations) is not ported
+    yet."""
+    if population is not None:
+        raise NotImplementedError("population= is not ported yet")
+    dev = resolve_device(device)
+    if data.device.type != dev.type:
+        raise ValueError(f"data lives on {data.device}, context on {dev}")
+    num_clients = len(data.client_indices)
+    cfg = model_cfg or ResNetConfig(num_classes=data.num_classes,
+                                    image_size=data.x.shape[1])
+    ratios = client_ratios(num_clients, sim.scenario, sim.seed)
+    mem = resnet_memory(cfg, sim.mem_batch)
+    budgets = scenario_budgets(mem, ratios)
+    return Context(
+        sim=sim, num_clients=num_clients, sizes=data.client_sizes(),
+        rng=np.random.default_rng(sim.seed), seed=sim.seed, device=dev,
+        model_cfg=cfg, mem=mem, ratios=ratios, budgets=budgets,
+        decomps=[decompose(mem, int(b)) for b in budgets],
+        surplus=np.where(ratios >= 2.0, 2, 1), data=data)
 
 
 def default_batch_fn(ctx: Context) -> Callable[[int], list]:

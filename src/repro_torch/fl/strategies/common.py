@@ -1,10 +1,17 @@
-"""Helpers shared by the built-in strategies (LM eval)."""
+"""Helpers shared by the built-in strategies (image + LM evals)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import build, common as mcommon
+from repro_torch.configs.preresnet20 import ResNetConfig
+from repro_torch.fl.strategy import accuracy
+from repro_torch.models import build, common as mcommon, resnet
+
+
+def resnet_accuracy(cfg: ResNetConfig, params, x: torch.Tensor,
+                    y: torch.Tensor) -> float:
+    return accuracy(lambda xb: resnet.apply(params, cfg, xb), x, y)
 
 
 @torch.no_grad()

@@ -1,0 +1,44 @@
+"""FedAvg at the cohort's lowest common width (x min r) — the
+lowest-common-denominator baseline (McMahan et al. 2017; port of
+``repro.fl.strategies.fedavg``): every client trains the SAME slimmed
+model, so no heterogeneity machinery at all.  The batched, shardable and
+async hooks wait for their slices.
+"""
+from __future__ import annotations
+
+from repro_torch.core import aggregation
+from repro_torch.fl import width as width_util
+from repro_torch.fl.baselines import fedavg_local
+from repro_torch.fl.registry import register
+from repro_torch.fl.strategies import common
+from repro_torch.fl.strategy import ClientResult
+from repro_torch.models import resnet
+
+
+@register("fedavg")
+class FedAvgStrategy:
+    def setup(self, ctx):
+        from repro_torch.fl.engine import SCENARIOS
+        self.r_min = min(min(SCENARIOS[ctx.sim.scenario]), 1.0)
+        self.sub_cfg = width_util.subnet_config(ctx.model_cfg, self.r_min)
+
+    def client_work(self, ctx, client_id):
+        """System-time pricing: EVERY client trains the x min r subnet,
+        not its own budget's decomposition."""
+        return self.r_min
+
+    def init_state(self, ctx):
+        return resnet.init(ctx.seed, self.sub_cfg, device=ctx.device)
+
+    def client_update(self, ctx, state, client_id, batches):
+        local = fedavg_local(self.sub_cfg, state, batches, lr=ctx.sim.lr,
+                             momentum=ctx.sim.momentum,
+                             local_steps=ctx.sim.local_steps)
+        return ClientResult(local, float(ctx.sizes[client_id]))
+
+    def aggregate(self, ctx, state, results):
+        return aggregation.fedavg([r.payload for r in results],
+                                  [r.weight for r in results])
+
+    def eval_model(self, ctx, state, x, y):
+        return common.resnet_accuracy(self.sub_cfg, state, x, y)

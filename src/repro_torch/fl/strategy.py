@@ -8,7 +8,7 @@ batchable / shardable / async capabilities wait for their slices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Protocol, Sequence, \
+from typing import Any, Callable, List, Optional, Protocol, Sequence, \
     runtime_checkable
 
 import numpy as np
@@ -48,6 +48,8 @@ class Context:
     ratios: Optional[np.ndarray] = None      # scenario width ratios
     budgets: Optional[np.ndarray] = None     # bytes per client
     decomps: Optional[List] = None           # Decomposition per client
+    surplus: Optional[np.ndarray] = None     # per-client local model count M
+                                             # (M > 1 -> MKD client)
     data: Any = None
     # depth-wise execution contract: buffer the frozen-prefix activation
     # once per distinct batch per subproblem (True) or replay the prefix
@@ -82,3 +84,14 @@ def wire_bytes(tree, *, codec=None) -> int:
     if codec is not None and codec != "none":
         raise NotImplementedError(f"codec {codec!r} is not ported yet")
     return tree_bytes(tree)
+
+
+@torch.no_grad()
+def accuracy(logits_fn: Callable, x: torch.Tensor, y: torch.Tensor,
+             batch: int = 512) -> float:
+    """Batched top-1 accuracy for any ``logits_fn(x) -> (B, C)``."""
+    correct = 0
+    for i in range(0, len(x), batch):
+        logits = logits_fn(x[i:i + batch])
+        correct += int((logits.argmax(-1) == y[i:i + batch]).sum())
+    return correct / len(x)

@@ -7,8 +7,15 @@ rwkv6) as ``{"embed", "layers": {... stacked leaves}, "final_norm"[,
 "lm_head"]}``; the port keeps ``params["units"]`` / ``params["layers"]``
 as a list with one dict per layer.  Matrices keep the
 reference's (in, out) layout on both sides (the port multiplies
-``x @ w``), so nothing is transposed.  Arrays cross as numpy, so this
-module needs neither JAX nor the reference package.
+``x @ w``), so nothing is transposed.
+
+A ResNet tree (recognised by its ``"stem"`` key) keeps its structure:
+``blocks`` is a list on both sides, and ``classifier``, ``head_norm`` and
+m-FeDepth's ``aux_heads`` cross as they are.  Its conv weights, the only
+4-D leaves, go from the reference's HWIO to the port's OIHW and back.
+
+Arrays cross as numpy, so this module needs neither JAX nor the reference
+package.
 """
 from __future__ import annotations
 
@@ -19,6 +26,10 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
+
+
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+_OIHW_TO_HWIO = (2, 3, 1, 0)
 
 
 def _unstack(tree: Any, i: int) -> Any:
@@ -34,12 +45,22 @@ def _stack(layers: list) -> Any:
     return np.stack(layers)
 
 
+def _conv_layout(tree: Any, axes: tuple) -> Any:
+    """Transpose every 4-D leaf (a ResNet tree's conv weights) by
+    ``axes``; copies, so the result shares no memory with ``tree``."""
+    return tree_map(lambda a: np.transpose(a, axes).copy()
+                    if np.ndim(a) == 4 else np.array(a), tree)
+
+
 def params_from_reference(tree: Dict[str, Any], *,
                           device: DeviceLike = None,
                           dtype=torch.float32) -> Dict[str, Any]:
     """Reference parameter tree (numpy arrays) -> the port's tree of
     tensors on ``device`` (the GPU unless ``"cpu"``)."""
     dev = resolve_device(device)
+    if "stem" in tree:
+        return tree_map(lambda a: torch.tensor(a, dtype=dtype, device=dev),
+                        _conv_layout(tree, _HWIO_TO_OIHW))
     out = dict(tree)
     key = "layers" if "layers" in tree else "units"
     stacked = tree[key]
@@ -57,6 +78,8 @@ def params_from_reference(tree: Dict[str, Any], *,
 def params_to_reference(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's tree -> the reference's layout, as numpy arrays."""
     host = tree_map(lambda t: t.detach().cpu().numpy(), params)
+    if "stem" in host:
+        return _conv_layout(host, _OIHW_TO_HWIO)
     out = dict(host)
     if "layers" in host:
         out["layers"] = _stack(host["layers"])

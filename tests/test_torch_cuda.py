@@ -13,7 +13,12 @@ version in float64 than 2x the fp32 plain version; a tied
 head (``embed.T``) runs through the CE op with its loss and gradients
 equal to the plain version's; one FeDepth round of each ported family on
 the card is held against the same round on the CPU (atol 1e-4, rtol 1e-3:
-fp32, different kernels and summation order).
+fp32, different kernels and summation order).  The image path (PreResNet-20
+through cuDNN, no kernel of the port) is held to the CPU the same way:
+the full model's loss and every gradient (atol 1e-5, rtol 1e-4, on inputs
+whose ReLU inputs take the same branch on both devices), and one round of
+each image method on the reduced config (atol 1e-4, rtol 1e-3), with no
+kernel launched.
 """
 import dataclasses
 
@@ -23,7 +28,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_reduced_config  # noqa: E402
-from repro_torch.fl.engine import RoundEngine, SimConfig  # noqa: E402
+from repro_torch.configs.preresnet20 import CONFIG as RESNET20  # noqa: E402
+from repro_torch.configs.preresnet20 import reduced  # noqa: E402
+from repro_torch.fl.data import build_federated  # noqa: E402
+from repro_torch.fl.engine import RoundEngine, SimConfig, build_context  # noqa: E402
 from repro_torch.fl.registry import get_strategy  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -31,7 +39,8 @@ from repro_torch.kernels.chunked_ce import chunked_cross_entropy  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import mamba2_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
-from repro_torch.models import build  # noqa: E402
+from repro_torch.models import build, resnet  # noqa: E402
+from repro_torch.testing.relu import resnet_gradients_on  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -345,6 +354,67 @@ def test_round_on_the_card_matches_the_cpu(cuda, arch):
             initial_state=tree_map(lambda t: t.to(dev), init))
     for fn, n in zip(PATH_KERNELS[arch], before):
         assert fn.launches > n, fn.__name__
+    for a, b in zip(tree_leaves(states["cuda"]), tree_leaves(states["cpu"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+
+
+KERNELS = (flash_attention, chunked_cross_entropy, mamba2_scan, rwkv6_scan)
+
+
+def test_preresnet20_on_the_card_matches_the_cpu(cuda):
+    """Full PreResNet-20 (32 x 32, widths 16 / 32 / 64): logits, CE loss
+    and every parameter's gradient on the card (cuDNN, TF32 off) equal
+    the CPU's.  The batch is the first of ten seeded ones whose ReLU
+    inputs all take the same branch on both devices (a ReLU input within
+    rounding of 0 may not, and then the gradients differ there by
+    design)."""
+    _, out = resnet_gradients_on(resnet.init(0, RESNET20, device="cpu"),
+                                 RESNET20)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-4)
+
+
+def test_preresnet20_turns_tf32_off_itself(cuda):
+    """From PyTorch's defaults (TF32 on for cuDNN's convolutions), a
+    PreResNet forward on the card turns TF32 off before its first conv,
+    so its logits and gradients still equal the CPU's in fp32; the
+    parameters reach the card by hand, not through an entry point."""
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = reduced(num_classes=10, image_size=32)
+    _, out = resnet_gradients_on(resnet.init(1, cfg, device="cpu"), cfg)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("method,scenario", [
+    ("fedepth", "fair"), ("m-fedepth", "fair"), ("fedepth", "surplus"),
+    ("fedavg", "fair")])
+def test_image_round_on_the_card_matches_the_cpu(cuda, method, scenario):
+    """One round of each image method on the reduced PreResNet (8 clients,
+    16 x 16 images) on the card equals the same round on the CPU; the
+    path launches none of the port's kernels."""
+    cfg = reduced(num_classes=10, image_size=16)
+    sim = SimConfig(rounds=1, participation=0.5, lr=0.05, local_steps=1,
+                    batch_size=32, scenario=scenario, seed=0)
+    before = [fn.launches for fn in KERNELS]
+    states, init = {}, None
+    for dev in ("cpu", "cuda"):
+        data = build_federated(num_clients=8, n_train=640, n_test=64,
+                               image_size=16, seed=0, device=dev)
+        ctx = build_context(data, sim, model_cfg=cfg, device=dev)
+        strategy = get_strategy(method)
+        if init is None:
+            strategy.setup(ctx)
+            init = strategy.init_state(ctx)
+        states[dev], hist = RoundEngine(strategy, ctx).run(
+            initial_state=tree_map(lambda t: t.to(dev), init))
+        assert 0.0 <= hist[-1].accuracy <= 1.0
+    assert [fn.launches for fn in KERNELS] == before
     for a, b in zip(tree_leaves(states["cuda"]), tree_leaves(states["cpu"])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-3)

@@ -15,9 +15,12 @@ jax = pytest.importorskip("jax")
 from repro.configs import get_reduced_config as j_reduced  # noqa: E402
 from repro.models import build as j_build  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
-from repro_torch.fl.engine import SimConfig  # noqa: E402
+from repro_torch.configs.preresnet20 import reduced  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.fl.data import build_federated  # noqa: E402
+from repro_torch.fl.engine import SimConfig, build_context  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
-from repro_torch.models import build  # noqa: E402
+from repro_torch.models import build, resnet  # noqa: E402
 from repro_torch.testing.convert import (params_from_reference,  # noqa: E402
                                          params_to_reference)
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -80,8 +83,13 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
+
+# the image path's modules: each must be among those imported above
+IMAGE_PATH = ("configs.preresnet20", "models.resnet", "core.mkd",
+              "core.fedepth", "fl.data", "fl.width", "fl.baselines",
+              "fl.strategies.fedavg")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -91,7 +99,10 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _BLOCKER], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 28
+    missing = [m for m in IMAGE_PATH if f"repro_torch.{m}" not in names]
+    assert not missing, missing
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
@@ -113,6 +124,47 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     ctx = build_lm_context(data, sim, cfg, device="cpu")
     assert ctx.device.type == "cpu"
     assert build(cfg).init(0, device="cpu")["embed"].device.type == "cpu"
+
+    # the image path: data, context, PreResNet init, a ResNet tree
+    rcfg = reduced(num_classes=10, image_size=8)
+    kw = dict(num_clients=2, n_train=40, n_test=8, image_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_federated(**kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet.init(0, rcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_reference(params_to_reference(
+            resnet.init(0, rcfg, device="cpu")))
+    images = build_federated(**kw, device="cpu")
+    assert images.x.device.type == images.y_test.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_context(images, sim, model_cfg=rcfg)
+    assert build_context(images, sim, model_cfg=rcfg,
+                         device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError):
+        build_context(images, sim, model_cfg=rcfg, device="cpu",
+                      population=object())
+
+
+def test_cuda_device_turns_tf32_off(monkeypatch):
+    """Resolving a CUDA device sets the port's fp32 policy: TF32 off for
+    cuDNN's convolutions (on by PyTorch's default) and cuBLAS's matmuls,
+    process-wide, so that a convolution's backward, run later by
+    autograd, is fp32 too.  The CPU leaves the flags alone."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        assert resolve_device("cpu").type == "cpu"
+        assert torch.backends.cudnn.allow_tf32
+        assert resolve_device(None).type == "cuda"
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
 
 
 def test_chip_smoke_refuses_without_a_card():
