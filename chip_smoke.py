@@ -23,28 +23,36 @@ Phases (each fails loudly; any failure exits non-zero):
 4. paths: two FeDepth rounds (``RoundEngine`` over ``build_lm_context``)
    on each ported family at every published width, random weights from a
    seed: qwen2-7b (depth cut to 4 layers), mamba2-370m (all 48 layers,
-   tied head) and rwkv6-7b (depth cut to 4 layers).  Before each, a
-   reduced model's loss on the card is held against the CPU's.  The
-   kernels' launch counts, reset just before each path and read just
-   after, must be above zero for every kernel on that path;
+   tied head) and rwkv6-7b (depth cut to 4 layers); then two DepthFL
+   rounds of the same qwen2-7b with all 6 clients in each round (each
+   trains the prefix its budget fits, jointly: the r = 1 client all 4
+   layers, which the run requires).  Before each, a reduced model's loss
+   on the card is held against the CPU's.  The kernels' launch counts,
+   reset just before each run and read just after, must be above zero
+   for every kernel on that run's path;
 5. the paper's own experiment: PreResNet-20 at its published widths on
    CIFAR-10's shape (synthetic 32 x 32 x 3 images, 10 classes, 50 000 /
    10 000), 100 clients over a balanced Dirichlet (alpha 1) split,
    participation 0.1, batch 64: 2 rounds each of ``fedepth`` and
    ``m-fedepth`` under ``fair``, ``fedepth`` under ``surplus`` (r = 2
-   clients run MKD, M = 2) and ``fedavg`` (x min r) under ``fair``,
-   through ``build_federated`` -> ``build_context`` -> ``RoundEngine``.
-   Before them the full model's loss and gradient norm on the card are
-   held against the CPU's.  This path reaches none of the port's kernels
-   (convs are cuDNN's): its launch counts must read 0.
+   clients run MKD, M = 2), ``fedavg`` (x min r) under ``fair`` and the
+   paper's baselines ``heterofl``, ``splitmix`` and ``depthfl`` under
+   ``fair``, through ``build_federated`` -> ``build_context`` ->
+   ``RoundEngine``.  Before them the full model's loss and gradient norm
+   on the card are held against the CPU's, and so are DepthFL's joint
+   loss (four aux exits and the head) and its gradient norm.  This path
+   reaches none of the port's kernels (convs are cuDNN's): its launch
+   counts must read 0.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (K1 also per head, under ``heads``, each with the launches of the
-path it serves), then ``{"ok": true, "device": ...}`` as the last line.
+runs it serves, summed, and per run under ``runs``), then ``{"ok": true,
+"device": ...}`` as the last line.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -586,9 +594,11 @@ def _check_run(name, loss, history, state, multi_block) -> None:
         raise AssertionError(f"{name}: non-finite server parameters")
 
 
-def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
-    """Two FeDepth rounds of ``arch`` at every published width with
-    ``layers`` layers; returns this path's launch counts."""
+def phase_path(arch: str, layers: int, kernels: tuple,
+               method: str = "fedepth") -> dict:
+    """Two rounds of ``method`` (``fedepth`` or ``depthfl``) on ``arch``
+    at every published width with ``layers`` layers; returns this run's
+    launch counts."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.decomposition import schedule_summary
@@ -601,19 +611,24 @@ def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
     cfg = dataclasses.replace(full, num_layers=layers)
     cut = (f"(cut from {full.num_layers})" if layers < full.num_layers
            else "(all)")
-    log(f"path {cfg.name}: family {cfg.family} d_model {cfg.d_model} vocab "
+    name = f"{cfg.name} ({method})"
+    log(f"path {name}: family {cfg.family} d_model {cfg.d_model} vocab "
         f"{cfg.vocab_size} tied head {cfg.tie_embeddings} layers "
         f"{cfg.num_layers} {cut}, {cfg.param_count() / 1e9:.3f} B params")
     check_reduced_on_card(arch)
-    sim = SimConfig(rounds=2, participation=0.5, lr=0.05, momentum=0.9,
-                    local_steps=1, batch_size=4, scenario="fair", seed=0)
+    # DepthFL takes every client, so that the r = 1 client's joint 4-layer
+    # prefix and the average over masks of two depths run on the card
+    sim = SimConfig(rounds=2, participation=1.0 if method == "depthfl"
+                    else 0.5, lr=0.05, momentum=0.9, local_steps=1,
+                    batch_size=4, scenario="fair", seed=0)
     data = build_seq_data(6, n_per_client=16, n_test=16,
                           vocab_size=cfg.vocab_size, seq_len=256, seed=0)
     ctx = build_lm_context(data, sim, cfg)
-    for cid, dec in enumerate(ctx.decomps):
-        log(f"client {cid} (r={ctx.ratios[cid]:.3f}): "
-            + schedule_summary(dec, ctx.mem).replace("\n", " |"))
-    engine = RoundEngine(get_strategy("fedepth"), ctx)
+    engine = RoundEngine(get_strategy(method), ctx)
+    if method == "fedepth":
+        for cid, dec in enumerate(ctx.decomps):
+            log(f"client {cid} (r={ctx.ratios[cid]:.3f}): "
+                + schedule_summary(dec, ctx.mem).replace("\n", " |"))
     cohorts, peaks = _instrument(engine)
     state, history, launches, wall = _run_counted(engine)
     with torch.no_grad():
@@ -621,68 +636,148 @@ def phase_path(arch: str, layers: int, kernels: tuple) -> dict:
                                                 "labels": data.y_test[:4]})[0])
     log(f"test loss after 2 rounds: {loss:.4f}")
     for rd, ids in enumerate(cohorts):
-        blocks = [len(ctx.decomps[k].blocks) for k in ids]
-        log(f"round {rd + 1}: cohort {ids}, blocks per client {blocks}")
+        if method == "fedepth":
+            work = (f"blocks per client "
+                    f"{[len(ctx.decomps[k].blocks) for k in ids]}")
+        else:
+            work = (f"prefix depth per client (layers [0, d), one block) "
+                    f"{[engine.strategy.client_depth(ctx, k) for k in ids]}")
+        log(f"round {rd + 1}: cohort {ids}, {work}")
     for rec, peak in zip(history, peaks):
         log(f"round {rec.round}: accuracy {rec.accuracy}  seconds "
             f"{rec.seconds:.2f}  up bytes {rec.comm_bytes}  down bytes "
             f"{rec.down_bytes}  max_memory_allocated "
             f"{peak / 2**30:.2f} GiB")
-    log(f"path {cfg.name}: 2 rounds in {wall:.1f} s, launches {launches}")
-    _check_run(cfg.name, loss, history, state,
-               any(len(ctx.decomps[k].blocks) >= 2
-                   for ids in cohorts for k in ids))
+    log(f"path {name}: 2 rounds in {wall:.1f} s, launches {launches}")
+    clients = [k for ids in cohorts for k in ids]
+    _check_run(name, loss, history, state,
+               any(len(ctx.decomps[k].blocks) >= 2 for k in clients)
+               if method == "fedepth" else None)
+    if method == "depthfl":
+        depths = {engine.strategy.client_depth(ctx, k) for k in clients}
+        if len(depths) < 2 or max(depths) < 2:
+            raise AssertionError(f"{name}: the cohorts trained prefixes of "
+                                 f"depths {sorted(depths)} only, not a "
+                                 f"multi-layer prefix beside a shallower one")
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"{cfg.name}: kernels {missing} were not "
+        raise AssertionError(f"{name}: kernels {missing} were not "
                              f"launched: {launches}")
+    # ``_instrument``'s wrappers tie the engine into a reference cycle:
+    # collect it now, or its context (DepthFL's cached masks) outlives the
+    # run into the next one's peak
     del state, engine, ctx, data
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
 # --------------------------------------------------------------- phase 5
 IMAGE_RUNS = (
-    # (method, scenario) of the paper's experiment on PreResNet-20
+    # (method, scenario) of the paper's experiment on PreResNet-20, then
+    # the baselines it is compared against
     ("fedepth", "fair"), ("m-fedepth", "fair"), ("fedepth", "surplus"),
-    ("fedavg", "fair"))
+    ("fedavg", "fair"), ("heterofl", "fair"), ("splitmix", "fair"),
+    ("depthfl", "fair"))
 
 
-def check_resnet20_on_card() -> None:
-    """Full PreResNet-20: the CE loss and its gradient norm on the card
-    (cuDNN, TF32 off) equal the CPU's, from the same parameters and
-    batch.  The batch is the first seeded one whose ReLU inputs take the
-    same branch on both devices (``repro_torch.testing.relu``: an input
-    within rounding of 0 may not, and then the two gradients differ there
-    by design, not by a fault)."""
+def _card_vs_cpu(name: str, params, loss_fn=None) -> None:
+    """A PreResNet-20 loss (``testing.relu.resnet_gradients_on``'s
+    ``loss_fn``, by default the CE of the logits) and its gradient norm
+    on the card (cuDNN, TF32 off) equal the CPU's, from the same
+    parameters and batch.  The batch is the first seeded one whose ReLU
+    inputs take the same branch on both devices (an input within rounding
+    of 0 may not, and then the two gradients differ there by design, not
+    by a fault)."""
     import torch
     from repro_torch.configs.preresnet20 import CONFIG
-    from repro_torch.models import resnet
     from repro_torch.testing.relu import resnet_gradients_on
-    params = resnet.init(0, CONFIG, device="cpu")
     seed, out = resnet_gradients_on(params, CONFIG,
-                                    log=lambda m: log(f"  {m}"))
+                                    log=lambda m: log(f"  {m}"),
+                                    loss_fn=loss_fn)
     got = {dev: (out[dev][1].item(), float(torch.sqrt(sum(
         (g.double() ** 2).sum() for g in out[dev][2:])))) for dev in out}
     rel = max(abs(a - b) / abs(b) for a, b in zip(got["cuda"], got["cpu"]))
     ok = rel <= LOSS_RTOL
-    log(f"  {CONFIG.name} (batch seed {seed}): loss {got['cuda'][0]:.6f} "
+    log(f"  {name} (batch seed {seed}): loss {got['cuda'][0]:.6f} "
         f"(card) vs {got['cpu'][0]:.6f} (cpu), grad norm "
         f"{got['cuda'][1]:.6f} vs {got['cpu'][1]:.6f}, rel err {rel:.3e} "
         f"(tol {LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"PreResNet-20: card and CPU disagree ({rel})")
+        raise AssertionError(f"{name}: card and CPU disagree ({rel})")
+
+
+def check_resnet20_on_card() -> None:
+    """Full PreResNet-20's CE loss, card vs CPU (:func:`_card_vs_cpu`)."""
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.models import resnet
+    _card_vs_cpu(CONFIG.name, resnet.init(0, CONFIG, device="cpu"))
+
+
+def check_depthfl_on_card() -> None:
+    """DepthFL's joint loss at full depth (the mean CE of the four aux
+    exits and the head) of full PreResNet-20, card vs CPU, its gradient
+    over the parameters and the aux heads."""
+    import torch
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.fl import baselines
+    from repro_torch.models import resnet
+    params = resnet.init(0, CONFIG, device="cpu")
+    aux = baselines.depthfl_init_aux(
+        CONFIG, torch.Generator().manual_seed(1), device="cpu")
+
+    def joint_loss(p, images, labels):
+        exits = baselines.depthfl_logits(CONFIG, p[0], p[1],
+                                         CONFIG.num_blocks, images)
+        return torch.stack(exits), baselines.depthfl_loss(exits, labels)
+
+    _card_vs_cpu(f"DepthFL joint loss on {CONFIG.name}, {len(aux)} aux "
+                 f"exits and the head", (params, aux), joint_loss)
+
+
+def _image_loss(method: str, strategy, state, x, y) -> float:
+    """The test CE of a method's server state: the x min r subnet
+    (fedavg), SplitMix's ensemble, DepthFL's model without its aux heads,
+    else the full model."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.models import resnet
+    with torch.no_grad():
+        if method == "splitmix":
+            logits = state.ensemble_logits(x)
+        elif method == "depthfl":
+            logits = resnet.apply(state[0], CONFIG, x)
+        else:
+            logits = resnet.apply(state, getattr(strategy, "sub_cfg",
+                                                 CONFIG), x)
+        return float(F.cross_entropy(logits, y))
+
+
+def _client_work(method: str, ctx, strategy, k: int, trained) -> str:
+    """What client ``k`` trained in a round, for the log."""
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.fl.width import subnet_config
+    if method in ("fedepth", "m-fedepth"):
+        mkd = ", MKD" if ctx.surplus[k] > 1 else ""
+        return f"{len(ctx.decomps[k].blocks)} blocks{mkd}"
+    r = min(float(ctx.ratios[k]), 1.0)
+    if method == "heterofl":
+        return f"r {r:.3f} widths {subnet_config(CONFIG, r).widths()}"
+    if method == "splitmix":
+        return f"capacity {len(trained[k])} bases {trained[k]}"
+    if method == "depthfl":
+        return f"depth {strategy.client_depth(ctx, k)}"
+    return f"the {strategy.sub_cfg.name} subnet"
 
 
 def phase_image(data, method: str, scenario: str) -> dict:
     """Two rounds of ``method`` under ``scenario`` on full-width
     PreResNet-20; returns the run's launch counts (all must be 0)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs.preresnet20 import CONFIG
     from repro_torch.fl.engine import RoundEngine, SimConfig, build_context
     from repro_torch.fl.registry import get_strategy
-    from repro_torch.models import resnet
 
     name = f"{method} ({scenario})"
     sim = SimConfig(rounds=2, participation=0.1, lr=0.05, momentum=0.9,
@@ -690,42 +785,52 @@ def phase_image(data, method: str, scenario: str) -> dict:
     ctx = build_context(data, sim, model_cfg=CONFIG)
     engine = RoundEngine(get_strategy(method), ctx)
     cohorts, peaks = _instrument(engine)
+    trained = {}     # SplitMix: the base ids each client trained
+    if method == "splitmix":
+        client_update = engine.strategy.client_update
+
+        def recording_update(c, state, k, batches):
+            result = client_update(c, state, k, batches)
+            trained[k] = [b for b, _ in result.payload]
+            return result
+
+        engine.strategy.client_update = recording_update
     state, history, launches, wall = _run_counted(engine)
+    loss = _image_loss(method, engine.strategy, state, data.x_test[:512],
+                       data.y_test[:512])
     cfg = getattr(engine.strategy, "sub_cfg", CONFIG)
-    with torch.no_grad():
-        loss = float(F.cross_entropy(resnet.apply(state, cfg,
-                                                  data.x_test[:512]),
-                                     data.y_test[:512]))
+    if method == "splitmix":
+        cfg = state.base_cfg
+        log(f"image run {name}: {state.k} base nets")
     log(f"image run {name}: {cfg.name} widths {cfg.widths()} blocks "
         f"{cfg.num_blocks}, test loss after 2 rounds {loss:.4f}")
-    fedepth = method != "fedavg"
-    mkd = []
+    fedepth = method in ("fedepth", "m-fedepth")
+    clients = [k for ids in cohorts for k in ids]
     for rd, ids in enumerate(cohorts):
-        if fedepth:
-            ran_mkd = [k for k in ids if ctx.surplus[k] > 1]
-            mkd += ran_mkd
-            work = (f"blocks per client "
-                    f"{[len(ctx.decomps[k].blocks) for k in ids]}, MKD "
-                    f"clients {ran_mkd}")
-        else:
-            work = f"every client trains the {cfg.name} subnet whole"
-        log(f"round {rd + 1}: cohort {ids}, {work}")
+        work = [_client_work(method, ctx, engine.strategy, k, trained)
+                for k in ids]
+        log(f"round {rd + 1}: cohort {ids}, trained: {'; '.join(work)}")
     for rec, peak in zip(history, peaks):
         log(f"round {rec.round}: accuracy {rec.accuracy}  seconds "
             f"{rec.seconds:.2f}  up bytes {rec.comm_bytes}  down bytes "
             f"{rec.down_bytes}  max_memory_allocated "
             f"{peak / 2**30:.3f} GiB")
     log(f"image run {name}: 2 rounds in {wall:.1f} s, launches {launches}")
-    _check_run(name, loss, history, state,
-               any(len(ctx.decomps[k].blocks) >= 2
-                   for ids in cohorts for k in ids) if fedepth else None)
-    if scenario == "surplus" and not mkd:
+    _check_run(name, loss, history,
+               state.bases if method == "splitmix" else state,
+               any(len(ctx.decomps[k].blocks) >= 2 for k in clients)
+               if fedepth else None)
+    if any(r.down_bytes <= 0 or r.comm_bytes <= 0 for r in history):
+        raise AssertionError(f"{name}: a round priced no bytes: {history}")
+    if scenario == "surplus" and not any(ctx.surplus[k] > 1
+                                         for k in clients):
         raise AssertionError(f"{name}: no cohort client ran MKD")
     launched = {k: n for k, n in launches.items() if n}
     if launched:
         raise AssertionError(f"{name}: the image path launched kernels "
                              f"{launched}")
     del state, engine, ctx
+    gc.collect()    # the engine's reference cycle, as in ``phase_path``
     torch.cuda.empty_cache()
     return launches
 
@@ -734,6 +839,7 @@ def phase_images() -> None:
     from repro_torch.fl.data import build_federated
     log("paper experiment: PreResNet-20 on CIFAR-10's shape")
     check_resnet20_on_card()
+    check_depthfl_on_card()
     t0 = time.perf_counter()
     data = build_federated(num_clients=100, partition="dirichlet", alpha=1.0,
                            balanced=True, n_train=50_000, n_test=10_000,
@@ -746,10 +852,11 @@ def phase_images() -> None:
 
 
 PATHS = (
-    # (arch, layers, kernels that must launch on the path)
-    ("qwen2-7b", 4, ("chunked_cross_entropy", "flash_attention")),
-    ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan")),
-    ("rwkv6-7b", 4, ("chunked_cross_entropy", "rwkv6_scan")),
+    # (arch, layers, kernels that must launch on the path, method)
+    ("qwen2-7b", 4, ("chunked_cross_entropy", "flash_attention"), "fedepth"),
+    ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan"), "fedepth"),
+    ("rwkv6-7b", 4, ("chunked_cross_entropy", "rwkv6_scan"), "fedepth"),
+    ("qwen2-7b", 4, ("chunked_cross_entropy", "flash_attention"), "depthfl"),
 )
 
 
@@ -781,16 +888,19 @@ def main() -> int:
     phase_build()
     numbers = phase_kernels()
     launches = {name: 0 for name in KERNEL_META}
-    by_path = {}
-    for arch, layers, path_kernels in PATHS:
-        by_path[arch] = phase_path(arch, layers, path_kernels)
-        for name, n in by_path[arch].items():
+    by_run = {}
+    for arch, layers, path_kernels, method in PATHS:
+        by_run[arch, method] = phase_path(arch, layers, path_kernels, method)
+        for name, n in by_run[arch, method].items():
             launches[name] += n
     phase_images()
-    # launches: the sum over the paths, each read from its own run; K1's
-    # heads each with the launches of the path it serves
+    # launches: the sum over the runs, each read from its own run; K1's
+    # heads each with the launches of the runs it serves, summed
     for head in numbers["chunked_cross_entropy"]["heads"]:
-        head["launches"] = by_path[head["path"]]["chunked_cross_entropy"]
+        head["runs"] = {method: run["chunked_cross_entropy"]
+                        for (arch, method), run in by_run.items()
+                        if arch == head["path"]}
+        head["launches"] = sum(head["runs"].values())
     kernels = [dict(name=name, **KERNEL_META[name], launches=launches[name],
                     **numbers[name]) for name in KERNEL_META]
     log(f"chip_smoke: all phases passed in "

@@ -195,15 +195,25 @@ class RoundEngine:
                   batch_fn: Callable[[int], list]):
         """One round: sample -> local updates -> aggregate.  Returns
         (new_state, up_bytes, down_bytes); the downlink is the full state
-        per participant."""
+        per participant (:meth:`_downlink_bytes`)."""
         ctx = self.ctx
         cohort = self.sampler.sample(ctx, round_idx)
-        down = tree_bytes(state) * len(cohort)
+        down = sum(self._downlink_bytes(state, int(k)) for k in cohort)
         results = self.scheduler.run(ctx, self.strategy, state, cohort,
                                      batch_fn)
         comm = sum(r.comm_bytes if r.comm_bytes is not None
                    else wire_bytes(r.payload) for r in results)
         return self.strategy.aggregate(ctx, state, results), comm, down
+
+    def _downlink_bytes(self, state, client_id: int) -> int:
+        """The full broadcast's size for one client.  A state that is no
+        tree of tensors (``SplitMixState``) prices as 0 bytes, so it is
+        priced through the strategy's ``downlink_tree`` hook instead."""
+        full = tree_bytes(state)
+        hook = getattr(self.strategy, "downlink_tree", None)
+        if full == 0 and hook is not None:
+            full = tree_bytes(hook(self.ctx, state, client_id))
+        return full
 
     def run(self, *, initial_state=None,
             batch_fn: Optional[Callable[[int], list]] = None,

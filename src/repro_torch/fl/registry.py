@@ -5,7 +5,7 @@
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -27,6 +27,12 @@ def get_strategy(name: str):
         raise KeyError(f"unknown or not yet ported FL strategy {name!r}; "
                        f"available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def available() -> List[str]:
+    """Names of all registered strategies."""
+    _ensure_builtin()
+    return sorted(_REGISTRY)
 
 
 def _ensure_builtin() -> None:

@@ -1,2 +1,3 @@
 """Built-in FL strategies of the port; importing registers them."""
-from repro_torch.fl.strategies import fedavg, fedepth  # noqa: F401
+from repro_torch.fl.strategies import (depthfl, fedavg, fedepth,  # noqa: F401
+                                       heterofl, splitmix)

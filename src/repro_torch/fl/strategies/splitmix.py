@@ -1,0 +1,62 @@
+"""SplitMix (Hong et al. 2022) as an FLStrategy (port of
+``repro.fl.strategies.splitmix``): K = round(1/r) independent base
+networks of width r; clients train rotating subsets sized to their
+budget; the global model is the logit-mean ensemble.
+
+A client's base-net subset is drawn from the shared stream AFTER its
+batches (the scheduler draws the batches first), in the reference's
+order.  The reference's ``wire_parts`` waits for the comm channel and
+``client_work`` for system time.
+"""
+from __future__ import annotations
+
+from repro_torch.fl.baselines import SplitMixState, fedavg_local
+from repro_torch.fl.registry import register
+from repro_torch.fl.strategy import ClientResult, accuracy
+from repro_torch.tree import tree_map
+
+
+@register("splitmix")
+class SplitMixStrategy:
+    def init_state(self, ctx):
+        from repro_torch.fl.engine import SCENARIOS
+        base_r = min(min(SCENARIOS[ctx.sim.scenario]), 1.0)
+        return SplitMixState(ctx.model_cfg, base_r, ctx.seed,
+                             device=ctx.device)
+
+    def client_update(self, ctx, state, client_id, batches):
+        cap = state.capacity(min(ctx.ratios[client_id], 1.0))
+        chosen = ctx.rng.choice(state.k, size=cap, replace=False)
+        trained = []
+        for b_idx in chosen:
+            new = fedavg_local(state.base_cfg, state.bases[b_idx], batches,
+                               lr=ctx.sim.lr, momentum=ctx.sim.momentum,
+                               local_steps=ctx.sim.local_steps)
+            trained.append((int(b_idx), new))
+        return ClientResult(trained, float(ctx.sizes[client_id]))
+
+    def downlink_tree(self, ctx, state, client_id):
+        """A capacity-``cap`` client downloads ``cap`` base nets.  Which
+        ones is drawn later, in ``client_update``; every base has one
+        architecture, so the first ``cap`` price it exactly.  A
+        ``SplitMixState`` is no tree of tensors, so the engine's full
+        downlink is priced through this hook."""
+        cap = state.capacity(min(float(ctx.ratios[client_id]), 1.0))
+        return state.bases[:cap]
+
+    def aggregate(self, ctx, state, results):
+        """Per-base uniform averaging over the clients that trained it
+        (SplitMix weights every update equally); the state is updated in
+        place and returned."""
+        updates = [[] for _ in range(state.k)]
+        for r in results:
+            for b_idx, new in r.payload:
+                updates[b_idx].append(new)
+        for b_idx, ups in enumerate(updates):
+            if ups:
+                state.bases[b_idx] = tree_map(
+                    lambda *xs: sum(xs[1:], xs[0].clone()) / len(xs), *ups)
+        return state
+
+    def eval_model(self, ctx, state, x, y):
+        return accuracy(state.ensemble_logits, x, y)

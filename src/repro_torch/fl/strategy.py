@@ -8,8 +8,8 @@ batchable / shardable / async capabilities wait for their slices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Protocol, Sequence, \
-    runtime_checkable
+from typing import Any, Callable, Dict, List, Optional, Protocol, \
+    Sequence, runtime_checkable
 
 import numpy as np
 import torch
@@ -51,6 +51,9 @@ class Context:
     surplus: Optional[np.ndarray] = None     # per-client local model count M
                                              # (M > 1 -> MKD client)
     data: Any = None
+    # per-experiment memos of the strategies (e.g. HeteroFL's upload size
+    # per ratio): kept here, never on a reusable strategy instance
+    caches: Dict = dataclasses.field(default_factory=dict)
     # depth-wise execution contract: buffer the frozen-prefix activation
     # once per distinct batch per subproblem (True) or replay the prefix
     # in every SGD step (False) — ``RoundEngine(prefix_cache=...)``
@@ -78,11 +81,18 @@ class FLStrategy(Protocol):
         ...
 
 
-def wire_bytes(tree, *, codec=None) -> int:
+def wire_bytes(tree=None, *, codec=None,
+               n_coords: Optional[int] = None) -> int:
     """The sizing rule for payload wire cost: raw bytes of every tensor
-    leaf.  Lossy codecs are not ported yet."""
+    leaf, or 4 bytes (fp32) per coordinate for a padded carrier's
+    ``n_coords`` active coordinates (HeteroFL prices its width slice,
+    never the zero padding).  The engine sizes a payload this way when a
+    strategy leaves ``ClientResult.comm_bytes`` at ``None``.  Lossy
+    codecs are not ported yet."""
     if codec is not None and codec != "none":
         raise NotImplementedError(f"codec {codec!r} is not ported yet")
+    if n_coords is not None:
+        return 4 * int(n_coords)
     return tree_bytes(tree)
 
 

@@ -9,10 +9,13 @@ as a list with one dict per layer.  Matrices keep the
 reference's (in, out) layout on both sides (the port multiplies
 ``x @ w``), so nothing is transposed.
 
-A ResNet tree (recognised by its ``"stem"`` key) keeps its structure:
-``blocks`` is a list on both sides, and ``classifier``, ``head_norm`` and
-m-FeDepth's ``aux_heads`` cross as they are.  Its conv weights, the only
-4-D leaves, go from the reference's HWIO to the port's OIHW and back.
+Any other tree (a ResNet's, recognised by having neither key, or
+DepthFL's aux heads) keeps its structure: ``blocks`` is a list on both
+sides, and ``classifier``, ``head_norm`` and m-FeDepth's ``aux_heads``
+cross as they are.  Its conv weights, the only 4-D leaves, go from the
+reference's HWIO to the port's OIHW and back.  A tuple or list of trees
+crosses tree by tree: DepthFL's ``(params, aux)`` state and SplitMix's
+list of base nets.
 
 Arrays cross as numpy, so this module needs neither JAX nor the reference
 package.
@@ -52,13 +55,19 @@ def _conv_layout(tree: Any, axes: tuple) -> Any:
                     if np.ndim(a) == 4 else np.array(a), tree)
 
 
-def params_from_reference(tree: Dict[str, Any], *,
-                          device: DeviceLike = None,
-                          dtype=torch.float32) -> Dict[str, Any]:
+def _is_lm(tree: Dict[str, Any]) -> bool:
+    return "units" in tree or "layers" in tree
+
+
+def params_from_reference(tree: Any, *, device: DeviceLike = None,
+                          dtype=torch.float32) -> Any:
     """Reference parameter tree (numpy arrays) -> the port's tree of
     tensors on ``device`` (the GPU unless ``"cpu"``)."""
     dev = resolve_device(device)
-    if "stem" in tree:
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_reference(t, device=dev, dtype=dtype)
+                          for t in tree)
+    if not _is_lm(tree):
         return tree_map(lambda a: torch.tensor(a, dtype=dtype, device=dev),
                         _conv_layout(tree, _HWIO_TO_OIHW))
     out = dict(tree)
@@ -75,10 +84,12 @@ def params_from_reference(tree: Dict[str, Any], *,
                                            device=dev), out)
 
 
-def params_to_reference(params: Dict[str, Any]) -> Dict[str, Any]:
+def params_to_reference(params: Any) -> Any:
     """The port's tree -> the reference's layout, as numpy arrays."""
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to_reference(t) for t in params)
     host = tree_map(lambda t: t.detach().cpu().numpy(), params)
-    if "stem" in host:
+    if not _is_lm(host):
         return _conv_layout(host, _OIHW_TO_HWIO)
     out = dict(host)
     if "layers" in host:

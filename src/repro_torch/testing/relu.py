@@ -54,15 +54,25 @@ def branch_flips(a: Sequence[torch.Tensor],
                for x, y in zip(a, b))
 
 
+def _logits_and_ce(cfg: ResNetConfig):
+    def fn(p, images, labels):
+        logits = resnet.apply(p, cfg, images)
+        return logits, _ce_logits(logits, labels)
+    return fn
+
+
 def resnet_gradients_on(params, cfg: ResNetConfig,
-                        log: Optional[Callable[[str], None]] = None
+                        log: Optional[Callable[[str], None]] = None,
+                        loss_fn: Optional[Callable] = None
                         ) -> Tuple[int, Dict[str, List[torch.Tensor]]]:
-    """Logits, CE loss and every parameter's gradient of PreResNet
-    ``params`` (CPU tensors) on each of :data:`DEVICES`, from the first
-    of ten seeded batches of four whose ReLU inputs take the same branch
-    on both.  Returns ``(seed, {device: [logits, loss, *grads]})``, all
-    on the CPU; raises when no batch does.  ``log`` hears of each batch
-    passed over."""
+    """Outputs, loss and every parameter's gradient of a PreResNet
+    ``loss_fn(params, images, labels) -> (outputs, loss)`` (by default
+    the logits and their CE) from ``params`` (a tree of CPU tensors) on
+    each of :data:`DEVICES`, from the first of ten seeded batches of four
+    whose ReLU inputs take the same branch on both.  Returns ``(seed,
+    {device: [outputs, loss, *grads]})``, all on the CPU; raises when no
+    batch does.  ``log`` hears of each batch passed over."""
+    loss_fn = loss_fn or _logits_and_ce(cfg)
     for seed in range(10):
         gen = torch.Generator().manual_seed(seed)
         images = torch.randn(4, cfg.image_size, cfg.image_size,
@@ -72,10 +82,9 @@ def resnet_gradients_on(params, cfg: ResNetConfig,
         for dev in DEVICES:
             p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
             with recording_relu() as relu_in:
-                logits = resnet.apply(p, cfg, images.to(dev))
-            loss = _ce_logits(logits, labels.to(dev))
+                outputs, loss = loss_fn(p, images.to(dev), labels.to(dev))
             grads = torch.autograd.grad(loss, tree_leaves(p))
-            out[dev] = [t.detach().cpu() for t in (logits, loss, *grads)]
+            out[dev] = [t.detach().cpu() for t in (outputs, loss, *grads)]
             seen.append(relu_in)
         flips = branch_flips(*seen)
         if not flips:

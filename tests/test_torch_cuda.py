@@ -30,6 +30,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.configs.preresnet20 import CONFIG as RESNET20  # noqa: E402
 from repro_torch.configs.preresnet20 import reduced  # noqa: E402
+from repro_torch.fl import baselines  # noqa: E402
 from repro_torch.fl.data import build_federated  # noqa: E402
 from repro_torch.fl.engine import RoundEngine, SimConfig, build_context  # noqa: E402
 from repro_torch.fl.registry import get_strategy  # noqa: E402
@@ -393,7 +394,7 @@ def test_preresnet20_turns_tf32_off_itself(cuda):
 
 @pytest.mark.parametrize("method,scenario", [
     ("fedepth", "fair"), ("m-fedepth", "fair"), ("fedepth", "surplus"),
-    ("fedavg", "fair")])
+    ("fedavg", "fair"), ("heterofl", "fair"), ("depthfl", "fair")])
 def test_image_round_on_the_card_matches_the_cpu(cuda, method, scenario):
     """One round of each image method on the reduced PreResNet (8 clients,
     16 x 16 images) on the card equals the same round on the CPU; the
@@ -409,12 +410,71 @@ def test_image_round_on_the_card_matches_the_cpu(cuda, method, scenario):
         ctx = build_context(data, sim, model_cfg=cfg, device=dev)
         strategy = get_strategy(method)
         if init is None:
-            strategy.setup(ctx)
+            getattr(strategy, "setup", lambda _: None)(ctx)
             init = strategy.init_state(ctx)
         states[dev], hist = RoundEngine(strategy, ctx).run(
             initial_state=tree_map(lambda t: t.to(dev), init))
         assert 0.0 <= hist[-1].accuracy <= 1.0
     assert [fn.launches for fn in KERNELS] == before
+    for a, b in zip(tree_leaves(states["cuda"]), tree_leaves(states["cpu"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+
+
+def _client_update(method, params, aux, cfg, batches):
+    kw = dict(lr=0.05, momentum=0.9, local_steps=2)
+    if method == "heterofl":
+        return baselines.heterofl_local(cfg, params, 1 / 3, batches, **kw)
+    return baselines.depthfl_local(cfg, params, aux, cfg.num_blocks,
+                                   batches, **kw)[:2]
+
+
+@pytest.mark.parametrize("method", ["heterofl", "depthfl"])
+def test_baseline_client_update_on_the_card_matches_the_cpu(cuda, method):
+    """One HeteroFL client update (the x1/3 slice: widths 3 / 5 / 11 of
+    the reduced model, group norm at 3, 5 and 1 groups) and one DepthFL
+    client update (full depth: the aux exit and the head) on the card
+    equal the same updates on the CPU, with no kernel launched."""
+    cfg = reduced(num_classes=10, image_size=16)
+    params = resnet.init(2, cfg, device="cpu")
+    aux = baselines.depthfl_init_aux(cfg, torch.Generator().manual_seed(3),
+                                     device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    batches = [{"images": torch.randn(8, 16, 16, 3, generator=gen),
+                "labels": torch.randint(0, 10, (8,), generator=gen)}
+               for _ in range(2)]
+    before = [fn.launches for fn in KERNELS]
+    out = {dev: _client_update(method, *(tree_map(lambda t: t.to(dev), x)
+                                         for x in (params, aux)),
+                               cfg, tree_map(lambda t: t.to(dev), batches))
+           for dev in ("cpu", "cuda")}
+    assert [fn.launches for fn in KERNELS] == before
+    for a, b in zip(tree_leaves(out["cuda"]), tree_leaves(out["cpu"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+
+
+def test_depthfl_lm_round_launches_k1_and_k2(cuda):
+    """One DepthFL round of the reduced qwen2 (4 layers, every client in
+    the cohort: prefixes of 4 layers and of 1) launches the CE and the
+    attention kernels and equals the same round on the CPU."""
+    cfg = dataclasses.replace(get_reduced_config("qwen2-7b"), num_layers=4)
+    sim = SimConfig(rounds=1, participation=1.0, lr=0.05, local_steps=1,
+                    batch_size=4, seed=0)
+    init = build(cfg).init(0, device="cpu")
+    before = [fn.launches for fn in PATH_KERNELS["qwen2-7b"]]
+    states = {}
+    for dev in ("cpu", "cuda"):
+        data = build_seq_data(6, n_per_client=12, n_test=8,
+                              vocab_size=cfg.vocab_size, seq_len=16,
+                              device=dev)
+        ctx = build_lm_context(data, sim, cfg, device=dev)
+        strategy = get_strategy("depthfl")
+        states[dev], _ = RoundEngine(strategy, ctx).run(
+            initial_state=tree_map(lambda t: t.to(dev), init))
+        assert set(strategy.depths) == {1, 4}
+    for fn, n in zip(PATH_KERNELS["qwen2-7b"], before):
+        assert fn.launches > n, fn.__name__
     for a, b in zip(tree_leaves(states["cuda"]), tree_leaves(states["cpu"])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-3)

@@ -17,6 +17,7 @@ from repro.models import build as j_build  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.configs.preresnet20 import reduced  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.fl.baselines import SplitMixState, depthfl_init_aux  # noqa: E402
 from repro_torch.fl.data import build_federated  # noqa: E402
 from repro_torch.fl.engine import SimConfig, build_context  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
@@ -86,10 +87,13 @@ assert not loaded, loaded
 print(" ".join(names))
 """
 
-# the image path's modules: each must be among those imported above
+# the image path's and the baselines' modules: each must be among those
+# imported above
 IMAGE_PATH = ("configs.preresnet20", "models.resnet", "core.mkd",
               "core.fedepth", "fl.data", "fl.width", "fl.baselines",
-              "fl.strategies.fedavg")
+              "fl.strategies.fedavg", "fl.strategies.heterofl",
+              "fl.strategies.splitmix", "fl.strategies.depthfl",
+              "fl.sampling", "fl.registry", "testing.convert")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -144,6 +148,13 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(NotImplementedError):
         build_context(images, sim, model_cfg=rcfg, device="cpu",
                       population=object())
+    # the baselines' own state: SplitMix's base nets, DepthFL's aux heads
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SplitMixState(rcfg, 1 / 6, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        depthfl_init_aux(rcfg, torch.Generator())
+    assert SplitMixState(rcfg, 1 / 6, 0, device="cpu").bases[0][
+        "stem"].device.type == "cpu"
 
 
 def test_cuda_device_turns_tf32_off(monkeypatch):
