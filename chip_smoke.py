@@ -40,9 +40,19 @@ Phases (each fails loudly; any failure exits non-zero):
    ``fair``, through ``build_federated`` -> ``build_context`` ->
    ``RoundEngine``.  Before them the full model's loss and gradient norm
    on the card are held against the CPU's, and so are DepthFL's joint
-   loss (four aux exits and the head) and its gradient norm.  This path
-   reaches none of the port's kernels (convs are cuDNN's): its launch
-   counts must read 0.
+   loss (four aux exits and the head) and its gradient norm.  Then
+   ``fedavg``, ``heterofl`` and ``fedepth`` again with the vectorized
+   scheduler (``min_group=1``): equal bytes, the final states of the two
+   schedulers equal in float64 (in fp32 their distance is logged beside
+   two sequential runs'), round seconds, peaks and the device idle share
+   of a profiled round side by side.  This path reaches none of the
+   port's kernels (convs are cuDNN's): its launch counts must read 0;
+6. ViT-T/16 (paper Fig. 7) at full width: loss and gradients card vs
+   CPU, every ``vit_memory`` unit priced the same, Fig. 7's protocol
+   (FeDepth in blocks of 4, then FedAvg x1/6; accuracies logged, the
+   comparison not gated) and ``cross_device_vit`` (400 clients, cohort
+   100) with the sequential and then the vectorized scheduler, their
+   final states held together; no kernel may launch.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (K1 also per head, under ``heads``, each with the launches of the
@@ -557,6 +567,35 @@ def _instrument(engine):
     return cohorts, peaks
 
 
+def profile_round(engine, state, rd: int, batch_fn):
+    """One round under ``torch.profiler`` (device activity only, so that
+    the host's own work is not slowed by tracing it): returns (the new
+    state, wall seconds, device-busy seconds — the union of every kernel,
+    copy and fill on the card — and the count of device operations).
+    The device's idle share is 1 - busy / wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _, _ = engine.run_round(state, rd, batch_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, lo, hi = 0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            busy += 0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += 0 if hi is None else hi - lo
+    return state, wall, busy / 1e9, len(spans)
+
+
 def _run_counted(engine):
     """``engine.run(eval_every=1)`` with every kernel's launch count set
     to 0 just before and read just after; returns (state, history,
@@ -674,11 +713,15 @@ def phase_path(arch: str, layers: int, kernels: tuple,
 
 # --------------------------------------------------------------- phase 5
 IMAGE_RUNS = (
-    # (method, scenario) of the paper's experiment on PreResNet-20, then
-    # the baselines it is compared against
-    ("fedepth", "fair"), ("m-fedepth", "fair"), ("fedepth", "surplus"),
-    ("fedavg", "fair"), ("heterofl", "fair"), ("splitmix", "fair"),
-    ("depthfl", "fair"))
+    # (method, scenario, scheduler) of the paper's experiment on
+    # PreResNet-20, then the baselines it is compared against, then the
+    # vectorized scheduler's runs, each held to its sequential run
+    ("fedepth", "fair", "sequential"), ("m-fedepth", "fair", "sequential"),
+    ("fedepth", "surplus", "sequential"), ("fedavg", "fair", "sequential"),
+    ("heterofl", "fair", "sequential"), ("splitmix", "fair", "sequential"),
+    ("depthfl", "fair", "sequential"), ("fedavg", "fair", "vectorized"),
+    ("heterofl", "fair", "vectorized"), ("fedepth", "fair", "vectorized"))
+VEC_RTOL, VEC_ATOL = 2e-4, 2e-5   # vectorized vs sequential final state
 
 
 def _card_vs_cpu(name: str, params, loss_fn=None) -> None:
@@ -771,19 +814,58 @@ def _client_work(method: str, ctx, strategy, k: int, trained) -> str:
     return f"the {strategy.sub_cfg.name} subnet"
 
 
-def phase_image(data, method: str, scenario: str) -> dict:
-    """Two rounds of ``method`` under ``scenario`` on full-width
-    PreResNet-20; returns the run's launch counts (all must be 0)."""
-    import torch
+def _image_engine(data, method: str, scenario: str, scheduler: str):
+    """The ``RoundEngine`` of a phase-5 run: 2 rounds of ``method`` under
+    ``scenario`` on full-width PreResNet-20 with the ``scheduler`` (the
+    vectorized one with ``min_group=1``)."""
     from repro_torch.configs.preresnet20 import CONFIG
     from repro_torch.fl.engine import RoundEngine, SimConfig, build_context
     from repro_torch.fl.registry import get_strategy
-
-    name = f"{method} ({scenario})"
+    from repro_torch.fl.sampling import VectorizedScheduler
     sim = SimConfig(rounds=2, participation=0.1, lr=0.05, momentum=0.9,
                     local_steps=1, batch_size=64, scenario=scenario, seed=0)
-    ctx = build_context(data, sim, model_cfg=CONFIG)
-    engine = RoundEngine(get_strategy(method), ctx)
+    return RoundEngine(get_strategy(method),
+                       build_context(data, sim, model_cfg=CONFIG),
+                       scheduler=(VectorizedScheduler(min_group=1)
+                                  if scheduler == "vectorized"
+                                  else scheduler))
+
+
+def _final_state(data, method: str, scheduler: str, dtype):
+    """(final state, history) of a phase-5 run under ``fair`` with its
+    parameters in ``dtype`` (``data`` holds images of that dtype)."""
+    from repro_torch.tree import tree_map
+    engine = _image_engine(data, method, "fair", scheduler)
+    setup = getattr(engine.strategy, "setup", None)
+    if setup is not None:
+        setup(engine.ctx)
+    init = tree_map(lambda t: t.to(dtype),
+                    engine.strategy.init_state(engine.ctx))
+    return engine.run(initial_state=init, eval_every=2)
+
+
+def phase_image(data, method: str, scenario: str,
+                scheduler: str = "sequential"):
+    """Two rounds of ``method`` under ``scenario`` on full-width
+    PreResNet-20 with the ``scheduler`` (the vectorized one with
+    ``min_group=1``: every client with a key takes the stacked path);
+    returns (the final state, the history, the peaks), after checking
+    that no kernel launched."""
+    import torch
+    from repro_torch.configs.preresnet20 import CONFIG
+
+    name = f"{method} ({scenario}, {scheduler})"
+    engine = _image_engine(data, method, scenario, scheduler)
+    ctx = engine.ctx
+    stacked = []     # the clients that took the stacked path
+    if scheduler == "vectorized":
+        update_batched = engine.strategy.client_update_batched
+
+        def recording_batched(c, state, ids, batches):
+            stacked.extend(ids)
+            return update_batched(c, state, ids, batches)
+
+        engine.strategy.client_update_batched = recording_batched
     cohorts, peaks = _instrument(engine)
     trained = {}     # SplitMix: the base ids each client trained
     if method == "splitmix":
@@ -825,14 +907,99 @@ def phase_image(data, method: str, scenario: str) -> dict:
     if scenario == "surplus" and not any(ctx.surplus[k] > 1
                                          for k in clients):
         raise AssertionError(f"{name}: no cohort client ran MKD")
+    if scheduler == "vectorized" and sorted(stacked) != sorted(clients):
+        raise AssertionError(f"{name}: clients {sorted(stacked)} took the "
+                             f"stacked path, not the cohorts' {clients}")
     launched = {k: n for k, n in launches.items() if n}
     if launched:
         raise AssertionError(f"{name}: the image path launched kernels "
                              f"{launched}")
-    del state, engine, ctx
+    del engine, ctx
     gc.collect()    # the engine's reference cycle, as in ``phase_path``
     torch.cuda.empty_cache()
-    return launches
+    return state, history, peaks
+
+
+def _max_err(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+    return max(float((x - y).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _states_close(a, b) -> bool:
+    """Every leaf of ``b`` within VEC_ATOL + VEC_RTOL |a| of ``a``'s."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        bool(((x - y).abs() <= VEC_ATOL + VEC_RTOL * x.abs()).all())
+        for x, y in zip(la, lb))
+
+
+def check_same_run(method: str, seq, vec, data) -> None:
+    """A vectorized run against the sequential run of the same method.
+
+    fp32 (the timed runs): the same up and down bytes each round; the
+    round seconds and peaks side by side; the states' distance, logged
+    beside the distance between two sequential fp32 runs (cuDNN's
+    default backward algorithms are not deterministic, and a ReLU input
+    within rounding of 0 takes either branch, so two fp32 runs of the
+    same scheduler already differ beyond VEC_RTOL / VEC_ATOL at this
+    size).  float64 (``data``'s images in float64): the final states
+    within VEC_RTOL / VEC_ATOL and the same bytes — the equivalence
+    itself, held where rounding cannot reach a kink."""
+    import torch
+    (s_seq, h_seq, p_seq), (s_vec, h_vec, p_vec) = seq, vec
+    for (r1, m1), (r2, m2) in zip(zip(h_seq, p_seq), zip(h_vec, p_vec)):
+        log(f"  {method} round {r1.round}: sequential {r1.seconds:.3f} s "
+            f"{m1 / 2**30:.3f} GiB, vectorized {r2.seconds:.3f} s "
+            f"{m2 / 2**30:.3f} GiB (x{r1.seconds / r2.seconds:.2f})")
+    spread = _max_err(s_seq, _final_state(data, method, "sequential",
+                                          torch.float32)[0])
+    data64 = dataclasses.replace(data, x=data.x.double(),
+                                 x_test=data.x_test.double())
+    s64, h64 = _final_state(data64, method, "sequential", torch.float64)
+    v64, hv64 = _final_state(data64, method, "vectorized", torch.float64)
+
+    def wire(history):
+        return [(r.comm_bytes, r.down_bytes) for r in history]
+
+    same_bytes = wire(h_seq) == wire(h_vec) and wire(h64) == wire(hv64)
+    ok = _states_close(s64, v64) and same_bytes
+    log(f"  {method}: fp32 vectorized vs sequential max_abs_err "
+        f"{_max_err(s_seq, s_vec):.3e}, sequential vs itself {spread:.3e}; "
+        f"float64 vectorized vs sequential {_max_err(s64, v64):.3e} (rtol "
+        f"{VEC_RTOL:g} atol {VEC_ATOL:g}); same bytes {same_bytes} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{method}: the vectorized run differs from the "
+                             f"sequential one")
+    del s64, v64, data64
+    gc.collect()
+    torch.cuda.empty_cache()
+    for scheduler in ("sequential", "vectorized"):
+        # the phase's two rounds, then a third under the profiler
+        engine = _image_engine(data, method, "fair", scheduler)
+        setup = getattr(engine.strategy, "setup", None)
+        if setup is not None:
+            setup(engine.ctx)
+        state, batch_fn = engine.strategy.init_state(engine.ctx), \
+            engine.default_batch_fn()
+        for rd in range(2):
+            state, _, _ = engine.run_round(state, rd, batch_fn)
+        log_idle_share(f"  {method} {scheduler}", engine, state, 2)
+        del engine, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def log_idle_share(name: str, engine, state, rd: int) -> None:
+    """Log round ``rd``'s device idle share from ``state``
+    (:func:`profile_round`); the round's result is dropped."""
+    _, wall, busy, n = profile_round(engine, state, rd,
+                                     engine.default_batch_fn())
+    log(f"{name}: profiled round {rd + 1} {wall:.3f} s, device busy "
+        f"{busy:.4f} s over {n} device operations, idle share "
+        f"{1 - busy / wall:.4f}")
 
 
 def phase_images() -> None:
@@ -847,8 +1014,250 @@ def phase_images() -> None:
     log(f"data: {len(data.x)} train / {len(data.x_test)} test images "
         f"{tuple(data.x.shape[1:])} over {len(data.client_indices)} "
         f"clients in {time.perf_counter() - t0:.1f} s")
-    for method, scenario in IMAGE_RUNS:
-        phase_image(data, method, scenario)
+    vectorized = {m for m, _, sched in IMAGE_RUNS if sched == "vectorized"}
+    runs = {}
+    for method, scenario, scheduler in IMAGE_RUNS:
+        out = phase_image(data, method, scenario, scheduler)
+        if scheduler == "vectorized":
+            check_same_run(method, runs.pop(method), out, data)
+        elif method in vectorized and scenario == "fair":
+            runs[method] = out
+
+
+# --------------------------------------------------------------- phase 6
+def check_vit_on_card() -> None:
+    """Full ViT-T/16: loss, gradient norm and every gradient leaf on the
+    card (fp32 matmuls) against the CPU's, from the same parameters and
+    batch, each relative error <= LOSS_RTOL (a leaf's: its largest
+    difference over its largest magnitude); and fig7's check (a): every
+    ``vit_memory`` unit costs the same."""
+    import torch
+    from repro_torch.configs.vit_t16 import CONFIG
+    from repro_torch.core.blockwise import _ce_logits
+    from repro_torch.core.memory_model import vit_memory
+    from repro_torch.models import vit
+    from repro_torch.tree import tree_leaves, tree_map
+    for batch in (8, 64):
+        costs = {u.train_bytes() for u in vit_memory(CONFIG, batch).units}
+        log(f"  vit_memory at batch {batch}: {len(costs)} distinct unit "
+            f"cost(s) {sorted(costs)} over {CONFIG.num_layers} units "
+            f"{'ok' if len(costs) == 1 else 'FAIL'}")
+        if len(costs) != 1:
+            raise AssertionError(f"ViT units priced apart: {costs}")
+    params = vit.init(0, CONFIG, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(16, CONFIG.image_size, CONFIG.image_size,
+                         CONFIG.in_channels, generator=gen)
+    labels = torch.randint(0, CONFIG.num_classes, (16,), generator=gen)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+        loss = _ce_logits(vit.apply(p, CONFIG, images.to(dev)),
+                          labels.to(dev))
+        grads = [g.cpu() for g in torch.autograd.grad(loss, tree_leaves(p))]
+        got[dev] = (loss.item(), grads)
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = got["cuda"], got["cpu"]
+
+    def norm(gs):
+        return float(torch.sqrt(sum((g.double() ** 2).sum() for g in gs)))
+
+    rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    rel_norm = abs(norm(g_gpu) - norm(g_cpu)) / norm(g_cpu)
+    rel_leaf = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(g_gpu, g_cpu))
+    ok = max(rel_loss, rel_norm, rel_leaf) <= LOSS_RTOL
+    log(f"  {CONFIG.name}: loss {l_gpu:.6f} (card) vs {l_cpu:.6f} (cpu), "
+        f"grad norm {norm(g_gpu):.6f} vs {norm(g_cpu):.6f}, rel err loss "
+        f"{rel_loss:.3e} norm {rel_norm:.3e} worst leaf {rel_leaf:.3e} (tol "
+        f"{LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{CONFIG.name}: card and CPU disagree")
+
+
+def _check_no_launches(name: str, launches: dict) -> None:
+    launched = {k: n for k, n in launches.items() if n}
+    if launched:
+        raise AssertionError(f"{name}: launched kernels {launched}")
+
+
+def _zero_launches() -> dict:
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def phase_fig7() -> None:
+    """Paper Fig. 7 at full width, as ``benchmarks/fig7_vit_finetune.py``
+    runs it (there on the reduced ViT): 8 clients (Dirichlet alpha 1,
+    1600 / 400 synthetic 32 x 32 images, seed 3), 6 rounds of 4 clients,
+    one batch of 64 a client, 2 local steps, lr 0.05, momentum 0.9.
+    FeDepth on ViT-T/16 with the decomposition of
+    ``block_train_bytes(0, L // 3)`` (blocks of 4), then FedAvg on the
+    x1/6 ViT from the same stream.  Prints both test accuracies; check
+    (b), depth-wise above x1/6, is printed, not gated."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.vit_t16 import CONFIG
+    from repro_torch.core.blockwise import vit_runner
+    from repro_torch.core.decomposition import decompose
+    from repro_torch.core.memory_model import vit_memory
+    from repro_torch.fl.data import build_federated
+    from repro_torch.fl.engine import RoundEngine, SimConfig
+    from repro_torch.fl.registry import get_strategy
+    from repro_torch.fl.strategies.fedepth import FedepthStrategy
+    from repro_torch.fl.strategy import Context
+    from repro_torch.models import vit
+    from repro_torch.tree import tree_leaves
+
+    L = CONFIG.num_layers
+    data = build_federated(num_clients=8, alpha=1.0, n_train=1600, n_test=400,
+                           image_size=CONFIG.image_size, seed=3)
+    mem = vit_memory(CONFIG, batch=32)
+    dec = decompose(mem, mem.block_train_bytes(0, max(1, L // 3)))
+    if dec.blocks != ((0, 4), (4, 8), (8, 12)):
+        raise AssertionError(f"fig7 decomposition {dec.blocks}")
+    sim = SimConfig(rounds=6, participation=0.5, lr=0.05, momentum=0.9,
+                    local_steps=2, batch_size=64, scenario="fair", seed=3)
+    ctx = Context(sim=sim, num_clients=8, sizes=data.client_sizes(),
+                  rng=np.random.default_rng(3), seed=3,
+                  device=data.x.device, model_cfg=CONFIG, mem=mem,
+                  decomps=[dec] * 8, data=data)
+
+    def batch_fn(k):     # fig7 draws one batch of 64 a client
+        return [data.client_batch(k, 64, ctx.rng)]
+
+    accs = {}
+    for name, strategy, init in (
+            ("fedepth", FedepthStrategy(runner=vit_runner(CONFIG)),
+             vit.init(3, CONFIG)),
+            ("fedavg x1/6", get_strategy("fedavg"), None)):
+        engine = RoundEngine(strategy, ctx)
+        cohorts, peaks = _instrument(engine)
+        counters = _zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, history = engine.run(initial_state=init, batch_fn=batch_fn,
+                                    eval_every=sim.rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        cfg = getattr(strategy, "sub_cfg", CONFIG)
+        accs[name] = history[-1].accuracy
+        log(f"fig7 {name}: {cfg.name} dims {vit.dims(cfg)}, blocks "
+            f"{dec.blocks if name == 'fedepth' else 'the whole model'}, "
+            f"cohorts {cohorts}; {sim.rounds} rounds and the eval in "
+            f"{wall:.2f} s ({wall / sim.rounds:.3f} s a round), peak "
+            f"{max(peaks) / 2**30:.3f} GiB, test accuracy {accs[name]:.4f}, "
+            f"launches {launches}")
+        _check_no_launches(f"fig7 {name}", launches)
+        if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(state)):
+            raise AssertionError(f"fig7 {name}: non-finite parameters")
+        del engine, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"fig7 check (b), not gated: fedepth-ViT {accs['fedepth']:.4f} vs "
+        f"FedAvg(x1/6) {accs['fedavg x1/6']:.4f}: depth-wise "
+        f"{'above' if accs['fedepth'] > accs['fedavg x1/6'] else 'NOT above'}")
+
+
+def phase_cross_device_vit(n_rounds: int = 3) -> None:
+    """``benchmarks/round_engine.py``'s ``cross_device_vit`` at full width:
+    FeDepth on ViT-T/16 over 400 clients (8 images each, Dirichlet alpha
+    1), participation 0.25 (cohort 100), batch 8, 2 local steps, lr
+    0.05, seed 0, one shared decomposition (blocks of 4).  ``n_rounds``
+    rounds with the sequential scheduler, then as many with the
+    vectorized one, from the same initial state and the same stream;
+    the final states must agree within VEC_RTOL / VEC_ATOL, and no
+    kernel may launch.  Logs each round's seconds and peak, and the
+    steady rounds' (all but the first) seconds and rounds/s."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.vit_t16 import CONFIG
+    from repro_torch.core.blockwise import vit_runner
+    from repro_torch.core.decomposition import decompose
+    from repro_torch.core.memory_model import vit_memory
+    from repro_torch.fl.data import build_federated
+    from repro_torch.fl.engine import RoundEngine, SimConfig
+    from repro_torch.fl.strategies.fedepth import FedepthStrategy
+    from repro_torch.fl.strategy import Context
+    from repro_torch.models import vit
+    from repro_torch.tree import tree_leaves
+
+    clients, batch = 400, 8
+    data = build_federated(num_clients=clients, alpha=1.0,
+                           n_train=clients * batch, n_test=400,
+                           image_size=CONFIG.image_size, seed=0)
+    mem = vit_memory(CONFIG, batch=batch)
+    dec = decompose(mem, mem.block_train_bytes(0, CONFIG.num_layers // 3))
+    init = vit.init(0, CONFIG)
+    finals = {}
+    for sched in ("sequential", "vectorized"):
+        sim = SimConfig(rounds=n_rounds, participation=0.25, lr=0.05,
+                        local_steps=2, batch_size=batch, seed=0)
+        ctx = Context(sim=sim, num_clients=clients,
+                      sizes=data.client_sizes(),
+                      rng=np.random.default_rng(0), seed=0,
+                      device=data.x.device, model_cfg=CONFIG,
+                      mem=mem, decomps=[dec] * clients, data=data)
+        engine = RoundEngine(FedepthStrategy(runner=vit_runner(CONFIG)),
+                             ctx, scheduler=sched)
+        batch_fn = engine.default_batch_fn()
+        cohorts, peaks = _instrument(engine)    # peaks: one a round
+        aggregate, agg_secs = engine.strategy.aggregate, []
+
+        def timed_aggregate(c, state, results):
+            t0 = time.perf_counter()
+            out = aggregate(c, state, results)
+            torch.cuda.synchronize()
+            agg_secs.append(time.perf_counter() - t0)
+            return out
+
+        engine.strategy.aggregate = timed_aggregate
+        counters = _zero_launches()
+        state, secs = init, []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for rd in range(n_rounds):
+            t0 = time.perf_counter()
+            state, up, down = engine.run_round(state, rd, batch_fn)
+            secs.append(time.perf_counter() - t0)
+            log(f"cross_device_vit {sched} round {rd + 1}: "
+                f"{secs[-1]:.3f} s (FedAvg over the cohort {agg_secs[-1]:.3f}"
+                f" s), peak {peaks[-1] / 2**30:.3f} GiB, up {up} down {down} "
+                f"bytes")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        _check_no_launches(f"cross_device_vit {sched}", launches)
+        steady = float(np.median(secs[1:]))
+        finals[sched] = (state, steady)
+        log(f"cross_device_vit {sched}: steady round {steady:.3f} s "
+            f"({1 / steady:.2f} rounds/s, "
+            f"{len(cohorts[-1]) / steady:.1f} clients/s), peak "
+            f"{max(peaks) / 2**30:.3f} GiB, blocks {dec.blocks}, launches "
+            f"{launches}")
+        log_idle_share(f"cross_device_vit {sched}", engine, state, n_rounds)
+        del engine, ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+    (s_seq, t_seq), (s_vec, t_vec) = finals["sequential"], \
+        finals["vectorized"]
+    la, lb = tree_leaves(s_seq), tree_leaves(s_vec)
+    err = max(float((a - b).abs().max()) for a, b in zip(la, lb))
+    ok = all(bool(((a - b).abs() <= VEC_ATOL + VEC_RTOL * a.abs()).all())
+             for a, b in zip(la, lb))
+    log(f"cross_device_vit: vectorized / sequential speed x{t_seq / t_vec:.2f}"
+        f"; final states max_abs_err {err:.3e} (rtol {VEC_RTOL:g} atol "
+        f"{VEC_ATOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"cross_device_vit: schedulers disagree ({err})")
+
+
+def phase_vit() -> None:
+    log("paper Fig. 7: ViT-T/16 at full width")
+    check_vit_on_card()
+    phase_fig7()
+    phase_cross_device_vit()
 
 
 PATHS = (
@@ -894,6 +1303,7 @@ def main() -> int:
         for name, n in by_run[arch, method].items():
             launches[name] += n
     phase_images()
+    phase_vit()
     # launches: the sum over the runs, each read from its own run; K1's
     # heads each with the launches of the runs it serves, summed
     for head in numbers["chunked_cross_entropy"]["heads"]:

@@ -20,10 +20,17 @@ Two head strategies (paper §Methodology), on the ResNet runner:
 ``head="skip"`` (FeDepth: the block output zero-padded and pooled into
 the shared classifier) and ``head="aux"`` (m-FeDepth: a tiny auxiliary
 classifier per block exit; the final block trains the real head).  The
-LM runner covers the dense and the attention-free (``ssm``: mamba2,
-rwkv6) families with ``head="skip"``.  The ViT / whisper / hybrid
-runners, m-FeDepth on LMs and the stacked (vectorized) execution wait
-for later slices.
+ViT runner (paper Fig. 7) takes ``"skip"``: the CLS token into the
+shared head.  The LM runner covers the dense and the attention-free
+(``ssm``: mamba2, rwkv6) families with ``head="skip"``.  The whisper /
+hybrid runners and m-FeDepth on LMs wait for later slices.
+
+Stacked execution (the substrate of ``fl.sampling.VectorizedScheduler``):
+:func:`client_update_batched` runs a group of clients that share one
+decomposition as one computation over a leading client axis —
+``torch.func.vmap`` of ``torch.func.grad`` for the gradients, the
+momentum update on the stacked leaves outside it.  It covers the image
+runners (ResNet, ViT); the LM runners' kernels have no vmap rules yet.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.decomposition import Decomposition
-from repro_torch.models import common, resnet as resnet_mod
+from repro_torch.models import common, resnet as resnet_mod, vit as vit_mod
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -56,6 +63,9 @@ class BlockRunner:
     # advanced incrementally (False for tied embeddings: the head trains
     # the embedding table, so the prefix is re-buffered per subproblem)
     prefix_stable: bool = True
+    # model family ("resnet", "vit" or the LM config's family); the
+    # stacked path refuses the LM families (:func:`make_group_update`)
+    family: str = "?"
 
 
 def lm_runner(lm, head: str = "skip") -> BlockRunner:
@@ -107,7 +117,8 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
         return out
 
     return BlockRunner(lm.num_depth_units, embed, apply_units, head_loss,
-                       split, merge, prefix_stable=not cfg.tie_embeddings)
+                       split, merge, prefix_stable=not cfg.tie_embeddings,
+                       family=cfg.family)
 
 
 # ---- ResNet adapter -------------------------------------------------------
@@ -143,23 +154,57 @@ def resnet_runner(cfg, head: str = "skip") -> BlockRunner:
             train["stem"] = params["stem"]
         return train
 
-    def merge(params, train, lo: int = None, hi: int = None):
-        # a splice of exactly [lo, hi) into the block list, head / stem
-        # keys passed through; the input tree is never written
-        out = dict(params)
-        out["blocks"] = (list(params["blocks"][:lo]) + list(train["blocks"])
-                         + list(params["blocks"][hi:]))
-        for k in train:
-            if k != "blocks":
-                out[k] = train[k]
-        return out
+    return BlockRunner(n, embed, apply_units, head_loss, split,
+                       _merge_blocks, family="resnet")
 
-    return BlockRunner(n, embed, apply_units, head_loss, split, merge)
+
+# ---- ViT adapter ----------------------------------------------------------
+def vit_runner(cfg) -> BlockRunner:
+    """Runner over ViT (paper Fig. 7): the patch embedding (with the CLS
+    token and positions) is the embed, the encoder blocks
+    (``params["blocks"]``, a list) the units, the CLS token's norm and
+    classifier the head."""
+
+    def embed(params, batch):
+        return vit_mod.embed(params, cfg, batch["images"])
+
+    def apply_units(params, z, lo, hi):
+        return vit_mod.forward_blocks(params, cfg, z, lo, hi)
+
+    def head_loss(params, z, batch, block_idx):
+        return _ce_logits(vit_mod.head(params, cfg, z), batch["labels"])
+
+    def split(params, lo, hi):
+        train = {"blocks": params["blocks"][lo:hi],
+                 "head_norm": params["head_norm"],
+                 "classifier": params["classifier"]}
+        if lo == 0:
+            for k in ("patch_embed", "cls", "pos"):
+                train[k] = params[k]
+        return train
+
+    return BlockRunner(cfg.num_layers, embed, apply_units, head_loss, split,
+                       _merge_blocks, family="vit")
+
+
+def _merge_blocks(params, train, lo: int = None, hi: int = None):
+    """The image runners' merge: a splice of exactly [lo, hi) into the
+    block list, the head / embed keys passed through; the input tree is
+    never written."""
+    out = dict(params)
+    out["blocks"] = (list(params["blocks"][:lo]) + list(train["blocks"])
+                     + list(params["blocks"][hi:]))
+    for k in train:
+        if k != "blocks":
+            out[k] = train[k]
+    return out
 
 
 def _ce_logits(logits, labels):
-    """Mean cross-entropy of (B, C) logits, in fp32."""
-    return F.cross_entropy(logits.float(), labels.long())
+    """Mean cross-entropy of (B, C) logits, in fp32 (float64 for float64
+    logits)."""
+    return F.cross_entropy(logits.to(common.stat_dtype(logits)),
+                           labels.long())
 
 
 # --------------------------------------------------------------------------
@@ -371,3 +416,179 @@ def full_model_loss(runner: BlockRunner, params, batch):
     z = runner.embed(params, batch)
     z = runner.apply_units(params, z, 0, runner.n_units)
     return runner.head_loss(params, z, batch, runner.n_units - 1)
+
+
+# --------------------------------------------------------------------------
+# stacked (vmap-over-clients) execution — substrate of VectorizedScheduler
+# --------------------------------------------------------------------------
+# families whose runners call the port's kernels (K1–K4): their autograd
+# Functions have no vmap rules yet (ROADMAP.md, queue 1, item 12)
+_KERNEL_FAMILIES = ("dense", "ssm")
+
+
+def broadcast_tree(tree, group: int):
+    """Stack ``tree`` along a new leading client axis of size ``group``.
+    Each leaf is a private copy (FedAvg's group update trains the
+    stacked leaves in place)."""
+    return tree_map(lambda x: x.unsqueeze(0).expand(group, *x.shape)
+                    .clone(), tree)
+
+
+def unstack_tree(tree, group: int):
+    """Split a leading client axis back into per-client trees (views)."""
+    return [tree_map(lambda x, i=i: x[i], tree) for i in range(group)]
+
+
+def batch_signature(batches) -> tuple:
+    """Shape / dtype signature of one client's batch list; two clients
+    are stackable iff their signatures are equal."""
+    return tuple(tuple((tuple(leaf.shape), str(leaf.dtype))
+                       for leaf in tree_leaves(b)) for b in batches)
+
+
+def stackable(batches_per_client) -> bool:
+    """True when every client's batch list can be stacked into one
+    ``(clients, batches, ...)`` tree (same count, shapes, dtypes)."""
+    return len({batch_signature(b) for b in batches_per_client}) == 1
+
+
+def stack_batches(batches_per_client):
+    """Stack per-client batch lists into a ``(clients, batches, ...)``
+    tree: client order on axis 0, the round's batch list on axis 1 (each
+    distinct batch is stored once; :func:`run_local_steps` repeats the
+    list ``local_steps`` times)."""
+    def stack(*xs):
+        return torch.stack([torch.as_tensor(x) for x in xs])
+
+    return tree_map(stack, *[tree_map(stack, *batches)
+                             for batches in batches_per_client])
+
+
+def run_local_steps(step, carry, batches, local_steps: int):
+    """Run ``local_steps`` passes of ``step(carry, batch) -> carry`` over
+    the batch axis (axis 1) of a stacked ``(clients, batches, ...)``
+    tree, in the sequential path's order: ``for local_steps: for
+    batch``."""
+    n_batches = tree_leaves(batches)[0].shape[1]
+    for s in range(local_steps * n_batches):
+        carry = step(carry, tree_map(lambda x, i=s % n_batches: x[:, i],
+                                     batches))
+    return carry
+
+
+@torch.no_grad()
+def _momentum_step_(train, vel, grads, *, lr: float, momentum: float):
+    """The sequential step's update on stacked leaves, in place:
+    vel <- momentum * vel + grad; train <- train - lr * vel."""
+    torch._foreach_mul_(vel, momentum)
+    torch._foreach_add_(vel, grads)
+    torch._foreach_sub_(train, torch._foreach_mul(vel, lr))
+
+
+def make_group_update(runner: BlockRunner, blocks, *, lr: float,
+                      momentum: float, local_steps: int = 1,
+                      prox_mu: float = 0.0, prefix_cache: bool = True):
+    """The group update: a whole depth-wise local update (all blocks, all
+    SGD steps) over stacked ``(clients, ...)`` parameters and batches.
+    Each step takes every client's gradient in one
+    ``vmap(grad(loss))`` call — vs. clients x blocks x steps autograd
+    calls on the sequential path — and the momentum update on the
+    stacked leaves.
+
+    ``blocks`` is the shared ``Decomposition.blocks``; momentum and the
+    FedProx anchor reset per block, as in :func:`client_update`, and
+    steps visit ``local_steps`` repetitions of the batch axis in the
+    sequential order.  With ``prefix_cache`` (default) the buffered
+    z_{lo-1} is computed once per distinct batch per subproblem,
+    vmapped over the clients, and advanced through the just-trained
+    units when ``runner.prefix_stable``.  The returned function trains
+    clones of each block's split and returns a new stacked tree; the
+    stacked parameters it is given are not written."""
+    if runner.family in _KERNEL_FAMILIES:
+        raise NotImplementedError(
+            f"the stacked (vectorized) path for {runner.family!r} LM "
+            f"runners waits for vmap rules on the K1-K4 autograd Functions "
+            f"(ROADMAP.md, queue 1, item 12); use the sequential scheduler")
+    vmap, grad = torch.func.vmap, torch.func.grad
+
+    def make_step(lo, hi, j, anchor, params):
+        def loss(tp, params, anchor, z_in, batch):
+            if z_in is None:
+                z_in = make_prefix_forward(runner, lo)(params, batch)
+            out = block_loss_fn(runner, params, tp, z_in, batch, lo, hi, j)
+            if prox_mu > 0:
+                out = out + _prox_term(tp, anchor, prox_mu)
+            return out
+
+        grads = vmap(grad(loss), in_dims=(0, 0, 0, 0 if prefix_cache
+                                          else None, 0))
+
+        def step(carry, x):
+            train, vel = carry
+            z_in, batch = x if prefix_cache else (None, x)
+            g = grads(train, params, anchor, z_in, batch)
+            _momentum_step_(tree_leaves(train), tree_leaves(vel),
+                            tree_leaves(g), lr=lr, momentum=momentum)
+            return train, vel
+
+        return step
+
+    def update(params, batches):
+        n_batches = tree_leaves(batches)[0].shape[1]
+        zs, prev_lo = None, None
+        for j, (lo, hi) in enumerate(blocks):
+            if prefix_cache:
+                if zs is None or not runner.prefix_stable:
+                    fwd = vmap(make_prefix_forward(runner, lo))
+                    zs = [fwd(params, tree_map(lambda x, i=i: x[:, i],
+                                               batches))
+                          for i in range(n_batches)]
+                elif lo != prev_lo:
+                    adv = vmap(make_prefix_advance(runner, prev_lo, lo))
+                    zs = [adv(params, z) for z in zs]
+                prev_lo = lo
+            anchor = runner.split(params, lo, hi)
+            train = tree_map(torch.clone, anchor)
+            vel = tree_map(torch.zeros_like, train)
+            step = make_step(lo, hi, j, anchor, params)
+            data = (torch.stack(zs, 1), batches) if prefix_cache else batches
+            train, vel = run_local_steps(step, (train, vel), data,
+                                         local_steps)
+            del vel, anchor
+            params = runner.merge(params, train, lo=lo, hi=hi)
+        return params
+
+    return update
+
+
+def group_update_for(runner: BlockRunner, dec: Decomposition, *,
+                     lr: float = 0.1, momentum: float = 0.9,
+                     local_steps: int = 1, prox_mu: float = 0.0,
+                     prefix_cache: bool = True):
+    """The group update for one decomposition: the function
+    :func:`client_update_batched` runs (eager, so nothing is compiled or
+    cached)."""
+    return make_group_update(runner, dec.blocks, lr=lr, momentum=momentum,
+                             local_steps=local_steps, prox_mu=prox_mu,
+                             prefix_cache=bool(prefix_cache))
+
+
+def client_update_batched(runner: BlockRunner, params, dec: Decomposition,
+                          batches_per_client, *, lr: float = 0.1,
+                          momentum: float = 0.9, local_steps: int = 1,
+                          prox_mu: float = 0.0, prefix_cache: bool = True):
+    """Depth-wise local updates for a GROUP of clients sharing one
+    decomposition, as one stacked computation.
+
+    Same contract as calling :func:`client_update` once per client (every
+    client starts from ``params``, which is never written; only the data
+    differs), modulo float associativity of the batched operations.
+    Returns the per-client updated trees, in the order of
+    ``batches_per_client``."""
+    update = group_update_for(runner, dec, lr=lr, momentum=momentum,
+                              local_steps=local_steps, prox_mu=prox_mu,
+                              prefix_cache=prefix_cache)
+    group = len(batches_per_client)
+    out = update(broadcast_tree(params, group),
+                 stack_batches(batches_per_client))
+    return unstack_tree(out, group)

@@ -13,10 +13,11 @@ width; they are validated against the paper's Table 1 depth-vs-width
 relation in tests/benchmarks.
 
 The port's own copy of ``repro.core.memory_model`` for the transformer
-families (``lm_memory``) and PreResNet (``resnet_memory``, the paper's
-Table 1), with their types; pure Python, the formulas unchanged —
-tests/test_torch_model.py and tests/test_torch_resnet.py hold them to the
-reference.  The ViT pricing waits for its slice.
+families (``lm_memory``), PreResNet (``resnet_memory``, the paper's
+Table 1) and ViT (``vit_memory``, paper Fig. 7: every block costs the
+same), with their types; pure Python, the formulas unchanged —
+tests/test_torch_model.py, tests/test_torch_resnet.py and
+tests/test_torch_vit.py hold them to the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import List, Optional, Union
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.preresnet20 import ResNetConfig
+from repro_torch.configs.vit_t16 import ViTConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,13 +273,42 @@ def resnet_memory(cfg: ResNetConfig, batch: int, *,
     return ModelMemory(units, embed, head, batch=batch)
 
 
-def model_memory(cfg: Union[ModelConfig, ResNetConfig], batch: int,
-                 seq: Optional[int] = None, **kw) -> ModelMemory:
+# --------------------------------------------------------------------------
+# ViT (uniform blocks — the paper's observation)
+# --------------------------------------------------------------------------
+def vit_memory(cfg: ViTConfig, batch: int, *, param_bytes: int = 4,
+               act_bytes: int = 4) -> ModelMemory:
+    from repro_torch.models.vit import dims
+    d, dff = dims(cfg)
+    N = cfg.num_patches + 1
+    units = []
+    for i in range(cfg.num_layers):
+        p = (4 * d * d + 2 * d * dff + dff + 5 * d) * param_bytes
+        act = act_bytes * batch * N * (4 * d + 2 * dff) \
+            + act_bytes * batch * cfg.num_heads * N * N  # naive attention
+        fl = 2 * N * (4 * d * d + 2 * d * dff) + 4 * N * N * d
+        units.append(UnitCost(f"block_{i}", p, act, act_bytes * batch * N * d,
+                              flops=fl))
+    patch_dim = cfg.patch_size ** 2 * cfg.in_channels
+    embed = UnitCost("patch_embed", (patch_dim * d + (N + 1) * d) * param_bytes,
+                     act_bytes * batch * N * d, act_bytes * batch * N * d,
+                     flops=2 * N * patch_dim * d)
+    head = UnitCost("head", (d * cfg.num_classes + cfg.num_classes + 2 * d)
+                    * param_bytes,
+                    act_bytes * batch * (d + cfg.num_classes),
+                    act_bytes * batch * cfg.num_classes,
+                    flops=2 * d * cfg.num_classes)
+    return ModelMemory(units, embed, head, batch=batch)
+
+
+def model_memory(cfg: Union[ModelConfig, ResNetConfig, ViTConfig],
+                 batch: int, seq: Optional[int] = None, **kw) -> ModelMemory:
     if isinstance(cfg, ModelConfig):
         if seq is None:
             raise ValueError("an LM config is priced at a sequence length")
         return lm_memory(cfg, batch, seq, **kw)
     if isinstance(cfg, ResNetConfig):
         return resnet_memory(cfg, batch, **kw)
-    raise TypeError(f"no memory model for {type(cfg).__name__} in the "
-                    f"port yet")
+    if isinstance(cfg, ViTConfig):
+        return vit_memory(cfg, batch, **kw)
+    raise TypeError(f"no memory model for {type(cfg).__name__}")

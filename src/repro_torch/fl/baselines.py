@@ -1,8 +1,10 @@
 """FL baselines the paper compares against (port of
-``repro.fl.baselines``), all on PreResNet:
+``repro.fl.baselines``), on PreResNet:
 
   * ``fedavg_local``  — FedAvg at a fixed width ratio (x min r), the
-    lowest-common-denominator baseline (McMahan et al. 2017).
+    lowest-common-denominator baseline (McMahan et al. 2017); also on
+    ViT (paper Fig. 7's x1/6 baseline).  ``fedavg_local_batched`` runs a
+    group of clients as one stacked update.
   * ``heterofl_*``    — width slimming with nested prefix-slice
     aggregation (Diao et al. 2021).
   * ``SplitMixState`` — base sub-networks of width r, mixed into an
@@ -12,8 +14,7 @@
     did (footnote 2).
 
 Every local solver is SGD-momentum, as in the paper's setup.  A client
-trains private copies: the trees it is given are never written.  The
-batched FedAvg update waits for vectorized cohort execution.
+trains private copies: the trees it is given are never written.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from repro_torch.core import blockwise
 from repro_torch.core.memory_model import resnet_memory
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl import width as width_util
-from repro_torch.models import resnet
-from repro_torch.tree import tree_map
+from repro_torch.models import image_model, resnet
+from repro_torch.tree import tree_leaves, tree_map
 
 
 _ce = blockwise._ce_logits
@@ -38,20 +39,61 @@ def _clone(tree):
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
-def fedavg_local(cfg: ResNetConfig, params, batches, *, lr=0.1,
-                 momentum=0.9, local_steps=1):
-    """Local SGD-momentum on the CE loss of the whole model from
-    ``params`` (not written), ``local_steps`` passes over ``batches``;
-    returns the trained copy."""
+def fedavg_local(cfg, params, batches, *, lr=0.1, momentum=0.9,
+                 local_steps=1):
+    """Local SGD-momentum on the CE loss of the whole image model (a
+    PreResNet or ViT ``cfg``) from ``params`` (not written),
+    ``local_steps`` passes over ``batches``; returns the trained copy."""
+    apply = image_model(cfg).apply
     params = _clone(params)
     vel = tree_map(torch.zeros_like, params)
     for _ in range(local_steps):
         for b in batches:
             blockwise.sgd_momentum_(
-                lambda: _ce(resnet.apply(params, cfg, b["images"]),
-                            b["labels"]),
+                lambda: _ce(apply(params, cfg, b["images"]), b["labels"]),
                 params, vel, lr=lr, momentum=momentum)
     return params
+
+
+def fedavg_group_update(cfg, lr: float, momentum: float, local_steps: int):
+    """The group counterpart of :func:`fedavg_local`'s loop over stacked
+    ``(clients, ...)`` parameters (updated in place) and ``(clients,
+    batches, ...)`` data: each step takes every client's gradient in one
+    ``vmap(grad(loss))`` call, then the momentum update on the stacked
+    leaves."""
+    apply = image_model(cfg).apply
+
+    def loss(p, b):
+        return _ce(apply(p, cfg, b["images"]), b["labels"])
+
+    grads = torch.func.vmap(torch.func.grad(loss))
+
+    def step(carry, batch):
+        p, v = carry
+        blockwise._momentum_step_(tree_leaves(p), tree_leaves(v),
+                                  tree_leaves(grads(p, batch)), lr=lr,
+                                  momentum=momentum)
+        return p, v
+
+    def update(params, batches):
+        vel = tree_map(torch.zeros_like, params)
+        params, _ = blockwise.run_local_steps(step, (params, vel), batches,
+                                              local_steps)
+        return params
+
+    return update
+
+
+def fedavg_local_batched(cfg, params, batches_per_client, *, lr=0.1,
+                         momentum=0.9, local_steps=1):
+    """Group counterpart of :func:`fedavg_local`: every client starts from
+    ``params`` (not written) and trains on its own batches.  Returns the
+    per-client trees in input order."""
+    group = len(batches_per_client)
+    update = fedavg_group_update(cfg, lr, momentum, local_steps)
+    out = update(blockwise.broadcast_tree(params, group),
+                 blockwise.stack_batches(batches_per_client))
+    return blockwise.unstack_tree(out, group)
 
 
 # --------------------------------------------------------------------------

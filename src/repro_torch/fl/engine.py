@@ -10,10 +10,10 @@ r uniformly distributed over the scenario's tuple (``SCENARIOS``; the
 full protocol is ``docs/budget_protocol.md``).  :func:`build_context`
 prepares the paper's image protocol; ``fl/seq.py`` the LM one.
 
-This slice runs the sequential scheduler with ``codec="none"``,
-``downlink="full"``, no faults, no checkpoints and no telemetry.  The
-reference's other knobs are accepted by name and raise
-``NotImplementedError`` when set — never silently ignored.
+The engine runs the sequential (default) or the vectorized scheduler
+with ``codec="none"``, ``downlink="full"``, no faults, no checkpoints and
+no telemetry.  The reference's other knobs are accepted by name and
+raise ``NotImplementedError`` when set — never silently ignored.
 """
 from __future__ import annotations
 
@@ -28,8 +28,8 @@ from repro_torch.configs.preresnet20 import ResNetConfig
 from repro_torch.core.decomposition import decompose, width_equivalent_budget
 from repro_torch.core.memory_model import resnet_memory
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.fl.sampling import (CohortSampler, SequentialScheduler,
-                                     UniformSampler)
+from repro_torch.fl.sampling import (CohortSampler, UniformSampler,
+                                     make_scheduler)
 from repro_torch.fl.strategy import Context, FLStrategy, wire_bytes
 from repro_torch.tree import tree_bytes
 
@@ -161,16 +161,13 @@ class RoundEngine:
                  sampler: Optional[CohortSampler] = None,
                  scheduler=None, prefix_cache="on", codec="none",
                  downlink: str = "full", **unported):
-        """``prefix_cache`` ("on" / "off") as in the reference.  The
-        sequential scheduler, ``codec="none"`` and ``downlink="full"`` are
-        the only ported settings; the reference's other knobs
+        """``prefix_cache`` ("on" / "off") and ``scheduler`` (a name of
+        ``fl.sampling.SCHEDULERS`` or an instance; sequential by default)
+        as in the reference.  ``codec="none"`` and ``downlink="full"`` are
+        the only ported wire settings; the reference's other knobs
         (``channel``, ``history_sink``, ``obs``, ``faults``,
         ``resilience``, ``checkpoint_*``, ``resume``) raise
         ``NotImplementedError`` when set."""
-        if scheduler not in (None, "sequential") \
-                and not isinstance(scheduler, SequentialScheduler):
-            raise NotImplementedError(
-                f"scheduler {scheduler!r} is not ported yet (sequential)")
         if codec not in (None, "none"):
             raise NotImplementedError(f"codec {codec!r} is not ported yet")
         if downlink != "full":
@@ -186,7 +183,7 @@ class RoundEngine:
         self.ctx = ctx if resolved == ctx.prefix_cache \
             else dataclasses.replace(ctx, prefix_cache=resolved)
         self.sampler = sampler or UniformSampler()
-        self.scheduler = SequentialScheduler()
+        self.scheduler = make_scheduler(scheduler)
 
     def default_batch_fn(self) -> Callable[[int], list]:
         return default_batch_fn(self.ctx)

@@ -5,16 +5,18 @@
 uniform without replacement); ``AvailabilityTraceSampler`` and
 ``StragglerSampler`` are the scenario extensions.  All three draw from
 the shared numpy stream in the reference's order, so a seed gives the
-reference's cohorts.  The vectorized scheduler waits for vectorized
-cohort execution.
+reference's cohorts.  ``SequentialScheduler`` runs a cohort client by
+client; ``VectorizedScheduler`` stacks the clients that run the same
+computation (``core.blockwise.client_update_batched``).
 """
 from __future__ import annotations
 
-from typing import Optional, Protocol, Sequence
+from typing import Callable, List, Optional, Protocol, Sequence
 
 import numpy as np
 
-from repro_torch.fl.strategy import Context
+from repro_torch.core.blockwise import stackable
+from repro_torch.fl.strategy import ClientResult, Context, FLStrategy
 
 
 class CohortSampler(Protocol):
@@ -76,9 +78,93 @@ class StragglerSampler:
         return cohort[keep]
 
 
+class ClientScheduler(Protocol):
+    def run(self, ctx: Context, strategy: FLStrategy, state,
+            cohort: Sequence[int],
+            batch_fn: Callable[[int], list]) -> List[ClientResult]:
+        """Execute the cohort's local updates, returning one
+        ``ClientResult`` per client, in cohort order."""
+        ...
+
+
 class SequentialScheduler:
     """Run clients one after another — the reference execution model."""
 
     def run(self, ctx, strategy, state, cohort, batch_fn):
         return [strategy.client_update(ctx, state, int(k), batch_fn(int(k)))
                 for k in cohort]
+
+
+class VectorizedScheduler:
+    """Stack the clients that run the SAME computation and execute each
+    group as one vmap-over-clients update.
+
+    The group key is the strategy's ``client_group_key`` (FeDepth: the
+    decomposition).  A group goes through the strategy's
+    ``client_update_batched`` when it has at least ``min_group`` clients,
+    a non-``None`` key and stackable batch lists (equal count, shapes,
+    dtypes); otherwise its clients run one by one.  Strategies without
+    the :class:`repro_torch.fl.strategy.BatchableFLStrategy` hooks are
+    handed to :class:`SequentialScheduler` wholesale, which keeps their
+    draws from the shared stream in order (SplitMix draws inside
+    ``client_update``).
+
+    Determinism: every client's batches are drawn up front in cohort
+    order, so the shared stream advances exactly as under the sequential
+    scheduler, and the results come back in cohort order — the choice of
+    scheduler changes the wall clock, not the experiment."""
+
+    def __init__(self, min_group: int = 2):
+        self.min_group = max(1, int(min_group))
+        self.fallback = SequentialScheduler()
+
+    def run(self, ctx, strategy, state, cohort, batch_fn):
+        update_batched = getattr(strategy, "client_update_batched", None)
+        group_key = getattr(strategy, "client_group_key", None)
+        if update_batched is None or group_key is None:
+            return self.fallback.run(ctx, strategy, state, cohort, batch_fn)
+
+        ids = [int(k) for k in cohort]
+        batches = [batch_fn(k) for k in ids]      # cohort-order draws
+        groups: dict = {}
+        for pos, cid in enumerate(ids):
+            groups.setdefault(group_key(ctx, cid), []).append(pos)
+        results: List[Optional[ClientResult]] = [None] * len(ids)
+        for key, positions in groups.items():
+            group_batches = [batches[p] for p in positions]
+            if (key is None or len(positions) < self.min_group
+                    or not stackable(group_batches)):
+                for p in positions:
+                    results[p] = strategy.client_update(ctx, state, ids[p],
+                                                        batches[p])
+                continue
+            outs = update_batched(ctx, state, [ids[p] for p in positions],
+                                  group_batches)
+            for p, res in zip(positions, outs):
+                results[p] = res
+        return results
+
+
+SCHEDULERS = {
+    "sequential": SequentialScheduler,
+    "vectorized": VectorizedScheduler,
+    "sharded": None,
+}
+
+
+def make_scheduler(spec=None) -> ClientScheduler:
+    """Resolve a scheduler spec: ``None`` -> the sequential default, a
+    name from ``SCHEDULERS``, or a ready instance passed through."""
+    if spec is None:
+        return SequentialScheduler()
+    if isinstance(spec, str):
+        if spec not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {spec!r}; "
+                             f"available: {sorted(SCHEDULERS)}")
+        if SCHEDULERS[spec] is None:
+            raise NotImplementedError(
+                f"scheduler {spec!r} waits for the scale item "
+                f"(ROADMAP.md, queue 1, item 9: ShardedScheduler over "
+                f"torch.distributed)")
+        return SCHEDULERS[spec]()
+    return spec

@@ -1,17 +1,23 @@
 """Helpers shared by the built-in strategies (image + LM evals)."""
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.preresnet20 import ResNetConfig
+from repro_torch.configs.vit_t16 import ViTConfig
 from repro_torch.fl.strategy import accuracy
-from repro_torch.models import build, common as mcommon, resnet
+from repro_torch.models import build, common as mcommon, image_model
 
 
-def resnet_accuracy(cfg: ResNetConfig, params, x: torch.Tensor,
-                    y: torch.Tensor) -> float:
-    return accuracy(lambda xb: resnet.apply(params, cfg, xb), x, y)
+def image_accuracy(cfg: Union[ResNetConfig, ViTConfig], params,
+                   x: torch.Tensor, y: torch.Tensor) -> float:
+    """Top-1 accuracy of an image model: PreResNet, or ViT for a
+    ``ViTConfig``."""
+    apply = image_model(cfg).apply
+    return accuracy(lambda xb: apply(params, cfg, xb), x, y)
 
 
 @torch.no_grad()

@@ -113,7 +113,7 @@ class DepthFLStrategy:
     def eval_model(self, ctx, state, x, y):
         if self._is_lm(ctx):
             return common.lm_accuracy(ctx.model_cfg, state, x, y)
-        return common.resnet_accuracy(ctx.model_cfg, state[0], x, y)
+        return common.image_accuracy(ctx.model_cfg, state[0], x, y)
 
 
 def _average(trees, weights):

@@ -1,18 +1,20 @@
 """FedAvg at the cohort's lowest common width (x min r) — the
 lowest-common-denominator baseline (McMahan et al. 2017; port of
 ``repro.fl.strategies.fedavg``): every client trains the SAME slimmed
-model, so no heterogeneity machinery at all.  The batched, shardable and
-async hooks wait for their slices.
+model, so no heterogeneity machinery at all.  That homogeneity makes it
+trivially batchable: the whole cohort is one vectorization group.  On a
+ViT config it is paper Fig. 7's x1/6 baseline.  The shardable and async
+hooks wait for their slices.
 """
 from __future__ import annotations
 
 from repro_torch.core import aggregation
 from repro_torch.fl import width as width_util
-from repro_torch.fl.baselines import fedavg_local
+from repro_torch.fl.baselines import fedavg_local, fedavg_local_batched
 from repro_torch.fl.registry import register
 from repro_torch.fl.strategies import common
 from repro_torch.fl.strategy import ClientResult
-from repro_torch.models import resnet
+from repro_torch.models import image_model
 
 
 @register("fedavg")
@@ -28,7 +30,8 @@ class FedAvgStrategy:
         return self.r_min
 
     def init_state(self, ctx):
-        return resnet.init(ctx.seed, self.sub_cfg, device=ctx.device)
+        return image_model(self.sub_cfg).init(ctx.seed, self.sub_cfg,
+                                              device=ctx.device)
 
     def client_update(self, ctx, state, client_id, batches):
         local = fedavg_local(self.sub_cfg, state, batches, lr=ctx.sim.lr,
@@ -36,9 +39,27 @@ class FedAvgStrategy:
                              local_steps=ctx.sim.local_steps)
         return ClientResult(local, float(ctx.sizes[client_id]))
 
+    # ---------------------------------------------- batched capability
+    def client_group_key(self, ctx, client_id):
+        return "fedavg"        # every client runs the identical subnet
+
+    def client_update_batched(self, ctx, state, client_ids,
+                              batches_per_client):
+        locals_ = fedavg_local_batched(
+            self.sub_cfg, state, batches_per_client, lr=ctx.sim.lr,
+            momentum=ctx.sim.momentum, local_steps=ctx.sim.local_steps)
+        return self.group_results(ctx, state, client_ids, locals_)
+
+    def group_results(self, ctx, state, client_ids, locals_):
+        return [ClientResult(local, float(ctx.sizes[cid]))
+                for cid, local in zip(client_ids, locals_)]
+
+    def group_mask(self, ctx, state, client_id):
+        return None        # plain FedAvg aggregation, no per-leaf masks
+
     def aggregate(self, ctx, state, results):
         return aggregation.fedavg([r.payload for r in results],
                                   [r.weight for r in results])
 
     def eval_model(self, ctx, state, x, y):
-        return common.resnet_accuracy(self.sub_cfg, state, x, y)
+        return common.image_accuracy(self.sub_cfg, state, x, y)

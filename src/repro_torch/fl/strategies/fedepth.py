@@ -7,6 +7,7 @@ Variants:
   * ``head="skip"``  -> FeDepth   (skip-connection classifier)
   * ``head="aux"``   -> m-FeDepth (auxiliary classifiers; ResNet only —
     m-FeDepth on LMs is not ported yet)
+  * a ``ViTConfig``  -> paper Fig. 7's depth-wise ViT fine-tune
   * surplus clients (M > 1)       -> MKD local update (core.mkd)
   * clients below the finest block -> partial training (skip prefix)
 
@@ -16,7 +17,9 @@ image protocol, the LM runner when ``model_cfg`` is a ``ModelConfig``) and
 ``runner`` (any BlockRunner), optional ``mkd_fns=(logits_fn,
 task_loss_fn)`` for surplus clients, ``masked_aggregation=True`` for the
 beyond-paper per-leaf reweighting and ``prox_mu`` for FedProx.  The
-batched, shardable, async and wire hooks wait for their slices.
+batched hooks let the vectorized scheduler stack the clients that share
+a decomposition (image runners only: an LM runner raises there).  The
+shardable, async and wire hooks wait for their slices.
 """
 from __future__ import annotations
 
@@ -26,13 +29,14 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.vit_t16 import ViTConfig
 from repro_torch.core import aggregation, blockwise, mkd
 from repro_torch.core.blockwise import BlockRunner
 from repro_torch.fl.baselines import _ce
 from repro_torch.fl.registry import register
 from repro_torch.fl.strategies import common
 from repro_torch.fl.strategy import ClientResult, wire_bytes
-from repro_torch.models import build, resnet
+from repro_torch.models import build, image_model, resnet, vit
 
 
 @register("fedepth")
@@ -52,6 +56,8 @@ class FedepthStrategy:
             if isinstance(ctx.model_cfg, ModelConfig):
                 self.runner = blockwise.lm_runner(build(ctx.model_cfg),
                                                   head=self.head)
+            elif isinstance(ctx.model_cfg, ViTConfig):
+                self.runner = blockwise.vit_runner(ctx.model_cfg)
             else:
                 self.runner = blockwise.resnet_runner(ctx.model_cfg,
                                                       head=self.head)
@@ -63,6 +69,8 @@ class FedepthStrategy:
                     "m-FeDepth on LMs (aux_norms) is not ported yet")
             return build(ctx.model_cfg).init(ctx.seed, device=ctx.device)
         gen = torch.Generator(device=ctx.device).manual_seed(ctx.seed)
+        if isinstance(ctx.model_cfg, ViTConfig):
+            return vit.init(gen, ctx.model_cfg, device=ctx.device)
         params = resnet.init(gen, ctx.model_cfg, device=ctx.device)
         if self.head == "aux":
             params["aux_heads"] = init_aux_heads(ctx.model_cfg, gen,
@@ -97,6 +105,66 @@ class FedepthStrategy:
             result.comm_bytes = wire_bytes(local)
         return result
 
+    # ---------------------------------------------- batched capability
+    def client_group_key(self, ctx, client_id):
+        """Clients sharing a decomposition run the same depth-wise
+        computation and stack; MKD surplus clients keep the sequential
+        path."""
+        M = 1 if ctx.surplus is None else int(ctx.surplus[client_id])
+        if M > 1 and self._mkd_available(ctx):
+            return None
+        dec = ctx.decomps[client_id]
+        return (dec.blocks, dec.skipped_prefix)
+
+    def client_update_batched(self, ctx, state, client_ids,
+                              batches_per_client):
+        """One stacked update for the whole group (partial-training prefix
+        skips and m-FeDepth's aux heads ride along: both live in the
+        shared decomposition and the parameter tree).  Raises for an LM
+        runner (:func:`blockwise.make_group_update`)."""
+        update = self.group_update_fn(ctx, client_ids)
+        group = len(batches_per_client)
+        locals_ = blockwise.unstack_tree(
+            update(blockwise.broadcast_tree(state, group),
+                   blockwise.stack_batches(batches_per_client)), group)
+        return self.group_results(ctx, state, client_ids, locals_)
+
+    def group_update_fn(self, ctx, client_ids):
+        """The group update for this group's shared decomposition, the
+        function ``client_update_batched`` runs."""
+        return blockwise.group_update_for(
+            self.runner, ctx.decomps[client_ids[0]], lr=ctx.sim.lr,
+            momentum=ctx.sim.momentum, local_steps=ctx.sim.local_steps,
+            prox_mu=self.prox_mu, prefix_cache=ctx.prefix_cache)
+
+    def group_results(self, ctx, state, client_ids, locals_):
+        """A group's results: weight ~ |D_k|; under masked aggregation the
+        group's shared trained-mask rides in the payload and the wire is
+        priced as the trained model alone."""
+        mask = self.group_mask(ctx, state, client_ids[0])
+        results = []
+        for cid, local in zip(client_ids, locals_):
+            res = ClientResult(local, float(ctx.sizes[cid]))
+            if self.masked_aggregation:
+                res.payload = (local, mask)
+                res.comm_bytes = wire_bytes(local)
+            results.append(res)
+        return results
+
+    def group_mask(self, ctx, state, client_id):
+        """The trained-mask of the client's decomposition under masked
+        aggregation (cached per decomposition in ``ctx.caches``), ``None``
+        when aggregating unmasked."""
+        if not self.masked_aggregation:
+            return None
+        dec = ctx.decomps[client_id]
+        cache = ctx.caches.setdefault("fedepth_group_masks", {})
+        key = (dec.blocks, dec.skipped_prefix)
+        if key not in cache:
+            cache[key] = aggregation.trained_mask_for(state, dec,
+                                                      self.runner)
+        return cache[key]
+
     def aggregate(self, ctx, state, results):
         ws = [r.weight for r in results]
         if self.masked_aggregation:
@@ -108,7 +176,7 @@ class FedepthStrategy:
     def eval_model(self, ctx, state, x, y):
         if isinstance(ctx.model_cfg, ModelConfig):
             return common.lm_accuracy(ctx.model_cfg, state, x, y)
-        return common.resnet_accuracy(ctx.model_cfg, state, x, y)
+        return common.image_accuracy(ctx.model_cfg, state, x, y)
 
     # ---------------------------------------------------------- MKD local
     def _mkd_update(self, ctx, state, batches, M: int):
@@ -119,11 +187,12 @@ class FedepthStrategy:
             logits_fn, task_fn = self.mkd_fns
             return mkd.mkd_local_update(logits_fn, task_fn, [state] * M,
                                         batches, **kw)[0]
-        # ResNet path (aux heads ride along untouched)
+        # image path (aux heads ride along untouched)
         cfg = ctx.model_cfg
+        apply = image_model(cfg).apply
 
         def logits_fn(p, b):
-            return resnet.apply(p, cfg, b["images"])
+            return apply(p, cfg, b["images"])
 
         def task_fn(p, b):
             return _ce(logits_fn(p, b), b["labels"])

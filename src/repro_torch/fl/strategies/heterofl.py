@@ -4,18 +4,20 @@ prefix-slice aggregation.  Each client trains the first round(r*C)
 channels; the server averages each coordinate over the clients whose
 slice covers it.
 
+Clients sharing a width ratio train the identical subnet, so they batch
+as one vectorization group (slice once, vmap the local SGD, pad each).
 The reference's other hooks wait for the subsystems that call them:
 ``wire_parts`` and ``downlink_tree`` (the width-r slice, which only the
 sliced / delta downlink modes price) for the comm channel,
-``client_work`` and ``aggregate_async`` for system time,
-``client_group_key`` and ``client_update_batched`` for vectorized cohort
-execution.
+``client_work`` and ``aggregate_async`` for system time.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.fl.baselines import heterofl_aggregate, heterofl_local
+from repro_torch.fl import width as width_util
+from repro_torch.fl.baselines import (fedavg_local_batched,
+                                      heterofl_aggregate, heterofl_local)
 from repro_torch.fl.registry import register
 from repro_torch.fl.strategies import common
 from repro_torch.fl.strategy import ClientResult, wire_bytes
@@ -51,6 +53,26 @@ class HeteroFLStrategy:
         return ClientResult((padded, mask), float(ctx.sizes[client_id]),
                             comm_bytes=self._wire_for(ctx, r, mask))
 
+    # ---------------------------------------------- batched capability
+    def client_group_key(self, ctx, client_id):
+        return float(min(ctx.ratios[client_id], 1.0))
+
+    def client_update_batched(self, ctx, state, client_ids,
+                              batches_per_client):
+        r = min(ctx.ratios[client_ids[0]], 1.0)
+        sub, sub_cfg = width_util.slice_resnet(state, ctx.model_cfg, r)
+        locals_ = fedavg_local_batched(
+            sub_cfg, sub, batches_per_client, lr=ctx.sim.lr,
+            momentum=ctx.sim.momentum, local_steps=ctx.sim.local_steps)
+        results = []
+        for cid, local in zip(client_ids, locals_):
+            padded, mask = width_util.pad_resnet(local, ctx.model_cfg,
+                                                 sub_cfg)
+            results.append(ClientResult(
+                (padded, mask), float(ctx.sizes[cid]),
+                comm_bytes=self._wire_for(ctx, r, mask)))
+        return results
+
     def aggregate(self, ctx, state, results):
         return heterofl_aggregate(state,
                                   [r.payload[0] for r in results],
@@ -58,4 +80,4 @@ class HeteroFLStrategy:
                                   [r.weight for r in results])
 
     def eval_model(self, ctx, state, x, y):
-        return common.resnet_accuracy(ctx.model_cfg, state, x, y)
+        return common.image_accuracy(ctx.model_cfg, state, x, y)

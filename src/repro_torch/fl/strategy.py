@@ -2,8 +2,10 @@
 
 Every method is a strategy with four hooks; one ``RoundEngine``
 (:mod:`repro_torch.fl.engine`) owns cohort sampling, budget /
-decomposition assignment, eval cadence and the structured history.  The
-batchable / shardable / async capabilities wait for their slices.
+decomposition assignment, eval cadence and the structured history.  A
+strategy with the two hooks of :class:`BatchableFLStrategy` can be run by
+the vectorized scheduler.  The shardable and async capabilities wait
+for their slices.
 """
 from __future__ import annotations
 
@@ -78,6 +80,33 @@ class FLStrategy(Protocol):
         ...
 
     def eval_model(self, ctx: Context, state: Any, x, y) -> float:
+        ...
+
+
+@runtime_checkable
+class BatchableFLStrategy(FLStrategy, Protocol):
+    """Optional capability: cohort-vectorized local updates.
+
+    :class:`repro_torch.fl.sampling.VectorizedScheduler` groups the
+    cohort by ``client_group_key`` and runs each group's local work as
+    one stacked (vmap-over-clients) computation through
+    ``client_update_batched``.  Strategies without the hooks (or
+    ``None`` keys) run per client — batching is an optimization, never a
+    requirement."""
+
+    def client_group_key(self, ctx: Context, client_id: int):
+        """Hashable execution signature: clients with equal keys run the
+        SAME computation and may be stacked; ``None`` opts the client
+        out of batching."""
+        ...
+
+    def client_update_batched(self, ctx: Context, state: Any,
+                              client_ids: Sequence[int],
+                              batches_per_client: Sequence[Sequence]
+                              ) -> List["ClientResult"]:
+        """Local updates of a group sharing one key: equivalent to
+        ``client_update`` per client (modulo float associativity),
+        results in ``client_ids`` order."""
         ...
 
 

@@ -3,7 +3,8 @@ the attention-free ``ssm`` family, mamba2 and rwkv6).
 
 ``build(cfg)`` -> ``LM`` with ``init``, ``loss_fn`` and the depth hooks
 ``num_depth_units`` / ``apply_range`` / ``forward_hidden`` that
-``repro_torch.core.blockwise`` consumes.
+``repro_torch.core.blockwise`` consumes.  ``image_model(cfg)`` is the
+module (``init``, ``apply``) of an image config: PreResNet or ViT.
 """
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ from typing import Any, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.vit_t16 import ViTConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import mamba2_lm, rwkv6, transformer
+from repro_torch.models import mamba2_lm, resnet, rwkv6, transformer, vit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +63,8 @@ def build(cfg: ModelConfig) -> LM:
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (dense and ssm "
         f"only)")
+
+
+def image_model(cfg):
+    """``models.vit`` for a ``ViTConfig``, else ``models.resnet``."""
+    return vit if isinstance(cfg, ViTConfig) else resnet

@@ -52,6 +52,22 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (out * weight.float()).to(x.dtype)
 
 
+def stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of a norm's or a softmax's statistics: fp32, or the
+    input's own dtype when it is wider (float64 runs stay float64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis with fp32 statistics (population
+    variance), as the reference's ``common.layer_norm``."""
+    dt = stat_dtype(x)
+    out = F.layer_norm(x.to(dt), x.shape[-1:], weight.to(dt), bias.to(dt),
+                       eps)
+    return out.to(x.dtype)
+
+
 def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 

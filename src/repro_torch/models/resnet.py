@@ -61,11 +61,12 @@ def groups_for(channels: int, groups: int = GN_GROUPS) -> int:
 
 
 def group_norm(x, w, b, groups=GN_GROUPS, eps=1e-5):
-    """GroupNorm over NCHW with fp32 statistics (biased variance) on
+    """GroupNorm over NCHW with fp32 statistics (float64 for float64
+    inputs; biased variance) on
     contiguous channel groups, as the reference's reshape groups them."""
     g = groups_for(x.shape[1], groups)
-    return F.group_norm(x.float(), g, w.float(), b.float(),
-                        eps).to(x.dtype)
+    dt = common.stat_dtype(x)
+    return F.group_norm(x.to(dt), g, w.to(dt), b.to(dt), eps).to(x.dtype)
 
 
 def _norm_init(c, *, device, dtype):

@@ -9,7 +9,12 @@ as a list with one dict per layer.  Matrices keep the
 reference's (in, out) layout on both sides (the port multiplies
 ``x @ w``), so nothing is transposed.
 
-Any other tree (a ResNet's, recognised by having neither key, or
+A ViT tree, recognised by its ``"patch_embed"``, keeps the reference's
+blocks stacked on a leading layer axis (``{"ln1": {"w": (L, d)}, "wqkv":
+(L, d, 3d), ...}``); the port keeps ``params["blocks"]`` as a list with
+one dict per layer.  Its other leaves cross as they are.
+
+Any other tree (a ResNet's, recognised by having none of these keys, or
 DepthFL's aux heads) keeps its structure: ``blocks`` is a list on both
 sides, and ``classifier``, ``head_norm`` and m-FeDepth's ``aux_heads``
 cross as they are.  Its conv weights, the only 4-D leaves, go from the
@@ -59,6 +64,15 @@ def _is_lm(tree: Dict[str, Any]) -> bool:
     return "units" in tree or "layers" in tree
 
 
+def _is_vit(tree: Dict[str, Any]) -> bool:
+    return "patch_embed" in tree
+
+
+def _tensors(tree: Any, dev, dtype) -> Any:
+    return tree_map(lambda a: torch.tensor(np.array(a), dtype=dtype,
+                                           device=dev), tree)
+
+
 def params_from_reference(tree: Any, *, device: DeviceLike = None,
                           dtype=torch.float32) -> Any:
     """Reference parameter tree (numpy arrays) -> the port's tree of
@@ -67,6 +81,10 @@ def params_from_reference(tree: Any, *, device: DeviceLike = None,
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_reference(t, device=dev, dtype=dtype)
                           for t in tree)
+    if _is_vit(tree):
+        n = len(tree_leaves(tree["blocks"])[0])
+        return _tensors({**tree, "blocks": [_unstack(tree["blocks"], i)
+                                            for i in range(n)]}, dev, dtype)
     if not _is_lm(tree):
         return tree_map(lambda a: torch.tensor(a, dtype=dtype, device=dev),
                         _conv_layout(tree, _HWIO_TO_OIHW))
@@ -80,8 +98,7 @@ def params_from_reference(tree: Any, *, device: DeviceLike = None,
         stacked = stacked["sub_0"]
     n = len(tree_leaves(stacked)[0])
     out[key] = [_unstack(stacked, i) for i in range(n)]
-    return tree_map(lambda a: torch.tensor(np.array(a), dtype=dtype,
-                                           device=dev), out)
+    return _tensors(out, dev, dtype)
 
 
 def params_to_reference(params: Any) -> Any:
@@ -89,6 +106,8 @@ def params_to_reference(params: Any) -> Any:
     if isinstance(params, (list, tuple)):
         return type(params)(params_to_reference(t) for t in params)
     host = tree_map(lambda t: t.detach().cpu().numpy(), params)
+    if _is_vit(host):
+        return {**host, "blocks": _stack(host["blocks"])}
     if not _is_lm(host):
         return _conv_layout(host, _OIHW_TO_HWIO)
     out = dict(host)

@@ -18,7 +18,9 @@ through cuDNN, no kernel of the port) is held to the CPU the same way:
 the full model's loss and every gradient (atol 1e-5, rtol 1e-4, on inputs
 whose ReLU inputs take the same branch on both devices), and one round of
 each image method on the reduced config (atol 1e-4, rtol 1e-3), with no
-kernel launched.
+kernel launched.  So are the reduced ViT's loss and gradients (atol 1e-5,
+rtol 1e-4) and one stacked (vectorized) FeDepth group update of the
+reduced PreResNet and ViT (atol 1e-4, rtol 1e-3).
 """
 import dataclasses
 
@@ -30,6 +32,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.configs.preresnet20 import CONFIG as RESNET20  # noqa: E402
 from repro_torch.configs.preresnet20 import reduced  # noqa: E402
+from repro_torch.configs.vit_t16 import reduced as vit_reduced  # noqa: E402
+from repro_torch.core import blockwise  # noqa: E402
+from repro_torch.core.decomposition import Decomposition  # noqa: E402
 from repro_torch.fl import baselines  # noqa: E402
 from repro_torch.fl.data import build_federated  # noqa: E402
 from repro_torch.fl.engine import RoundEngine, SimConfig, build_context  # noqa: E402
@@ -40,7 +45,7 @@ from repro_torch.kernels.chunked_ce import chunked_cross_entropy  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import mamba2_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
-from repro_torch.models import build, resnet  # noqa: E402
+from repro_torch.models import build, resnet, vit  # noqa: E402
 from repro_torch.testing.relu import resnet_gradients_on  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -476,5 +481,59 @@ def test_depthfl_lm_round_launches_k1_and_k2(cuda):
     for fn, n in zip(PATH_KERNELS["qwen2-7b"], before):
         assert fn.launches > n, fn.__name__
     for a, b in zip(tree_leaves(states["cuda"]), tree_leaves(states["cpu"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+
+
+def test_reduced_vit_on_the_card_matches_the_cpu(cuda):
+    """The reduced ViT (4 layers, d_model 64, 2 heads): logits, CE loss
+    and every parameter's gradient on the card (fp32 matmuls) equal the
+    CPU's; no kernel of the port is launched (its attention is plain
+    PyTorch)."""
+    cfg = vit_reduced(num_classes=10)
+    params = vit.init(0, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(8, 16, 16, 3, generator=gen)
+    labels = torch.randint(0, 10, (8,), generator=gen)
+    before = [fn.launches for fn in KERNELS]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        logits = vit.apply(p, cfg, images.to(dev))
+        loss = blockwise._ce_logits(logits, labels.to(dev))
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        out[dev] = [t.detach().cpu() for t in (logits, loss, *grads)]
+    assert [fn.launches for fn in KERNELS] == before
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("family", ["resnet", "vit"])
+def test_group_update_on_the_card_matches_the_cpu(cuda, family):
+    """One stacked FeDepth group update (three clients, blocks [0, 1) and
+    [1, 3), two local steps over two batches; ``vmap(grad)`` and, for
+    PreResNet, per-client grouped convolutions) on the card equals the
+    same update on the CPU, with no kernel launched."""
+    if family == "vit":
+        cfg = vit_reduced(num_classes=10)
+        runner, params = blockwise.vit_runner(cfg), vit.init(
+            2, cfg, device="cpu")
+    else:
+        cfg = reduced(num_classes=10, image_size=16)
+        runner, params = blockwise.resnet_runner(cfg), resnet.init(
+            2, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    bpc = [[{"images": torch.randn(8, 16, 16, 3, generator=gen),
+             "labels": torch.randint(0, 10, (8,), generator=gen)}
+            for _ in range(2)] for _ in range(3)]
+    dec = Decomposition(((0, 1), (1, 3)), 0, 0)
+    before = [fn.launches for fn in KERNELS]
+    out = {dev: blockwise.client_update_batched(
+        runner, tree_map(lambda t: t.to(dev), params), dec,
+        tree_map(lambda t: t.to(dev), bpc), lr=0.05, momentum=0.9,
+        local_steps=2) for dev in ("cpu", "cuda")}
+    assert [fn.launches for fn in KERNELS] == before
+    for a, b in zip(tree_leaves(out["cuda"]), tree_leaves(out["cpu"])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-3)

@@ -123,7 +123,7 @@ def test_two_rounds_match_reference_engine(arch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(scheduler="vectorized"), dict(codec="fp16"),
+    dict(scheduler="sharded"), dict(codec="fp16"),
     dict(downlink="delta"), dict(obs="on"), dict(checkpoint_every=1),
     dict(faults=object()), dict(resume=True)])
 def test_unported_engine_knobs_raise(knob):

@@ -21,7 +21,8 @@ from repro_torch.fl.baselines import SplitMixState, depthfl_init_aux  # noqa: E4
 from repro_torch.fl.data import build_federated  # noqa: E402
 from repro_torch.fl.engine import SimConfig, build_context  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
-from repro_torch.models import build, resnet  # noqa: E402
+from repro_torch.configs.vit_t16 import reduced as vit_reduced  # noqa: E402
+from repro_torch.models import build, resnet, vit  # noqa: E402
 from repro_torch.testing.convert import (params_from_reference,  # noqa: E402
                                          params_to_reference)
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -87,13 +88,17 @@ assert not loaded, loaded
 print(" ".join(names))
 """
 
-# the image path's and the baselines' modules: each must be among those
-# imported above
+# the image path's, the baselines', the ViT's and the vectorized
+# scheduler's modules: each must be among those imported above
 IMAGE_PATH = ("configs.preresnet20", "models.resnet", "core.mkd",
               "core.fedepth", "fl.data", "fl.width", "fl.baselines",
               "fl.strategies.fedavg", "fl.strategies.heterofl",
               "fl.strategies.splitmix", "fl.strategies.depthfl",
-              "fl.sampling", "fl.registry", "testing.convert")
+              "fl.sampling", "fl.registry", "testing.convert",
+              "configs.vit_t16", "models.vit", "models.common",
+              "models.api", "core.memory_model", "core.blockwise",
+              "fl.strategy", "fl.engine", "fl.strategies.fedepth",
+              "fl.strategies.common")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -155,6 +160,15 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
         depthfl_init_aux(rcfg, torch.Generator())
     assert SplitMixState(rcfg, 1 / 6, 0, device="cpu").bases[0][
         "stem"].device.type == "cpu"
+    # the ViT: init and a ViT tree
+    vcfg = vit_reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vit.init(0, vcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_reference(params_to_reference(
+            vit.init(0, vcfg, device="cpu")))
+    assert vit.init(0, vcfg, device="cpu")["blocks"][0][
+        "wqkv"].device.type == "cpu"
 
 
 def test_cuda_device_turns_tf32_off(monkeypatch):
