@@ -52,12 +52,26 @@ Phases (each fails loudly; any failure exits non-zero):
    (FeDepth in blocks of 4, then FedAvg x1/6; accuracies logged, the
    comparison not gated) and ``cross_device_vit`` (400 clients, cohort
    100) with the sequential and then the vectorized scheduler, their
-   final states held together; no kernel may launch.
+   final states held together; no kernel may launch;
+7. serving (``repro_torch.launch.serve``) of yi-6b, h2o-danube-3-4b,
+   minicpm-2b, qwen2-vl-2b (256 stubbed vision embeddings, M-RoPE),
+   mamba2-370m and rwkv6-7b at every published width and depth, one after
+   another: a timed ``LM.prefill`` of 4 x 512 tokens (K2, K3 or K4) and
+   the serve loop at batch 4 (64-token prompts walked through the cache,
+   32 generated tokens; decode attention is plain, each ssm step runs K3
+   or K4 at T = 1 from the carried state), with ms a token, tok/s, peaks,
+   bounds, a profiled 8-step walk's idle share and the walk against the
+   prefill with bf16 and with fp32 cache leaves (logged).  Before each:
+   the reduced config's decode against its prefill on the card (atol
+   3e-2 / rtol 5e-2), and the model at every width cut to 2 layers,
+   prefill on the card against the CPU (relative 1e-4) and 8 decode steps
+   (logged).  K1 must not launch.
 
 Prints the card's name and power limit, then one JSON line of kernel
-numbers (K1 also per head, under ``heads``, each with the launches of the
-runs it serves, summed, and per run under ``runs``), then ``{"ok": true,
-"device": ...}`` as the last line.
+numbers (K1 also per head and K2 at the serving prefill shapes, under
+``heads``, each with the launches of its arch's runs, summed, and per run
+under ``runs``; every kernel's serving launches per run under
+``serving``), then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
@@ -431,6 +445,21 @@ def phase_kernels() -> dict:
         dict(attn, name="window 100 across tile edges", window=100, seed=5),
         dict(attn, name="D=30 (4-byte copies), q_offset 20", B=1, Tq=20,
              Tk=40, Hq=2, Hkv=1, D=30, q_offset=20, seed=6),
+        # the serving prefills, each at the shape its arch's prefill gives
+        # it: yi-6b's group of 8, h2o-danube-3-4b's D 120 under its window,
+        # minicpm-2b's group of 1, qwen2-vl-2b's 256 vision + 512 text tokens
+        dict(attn, name="yi-6b prefill B4 T512 Hq32 Hkv4 D128 causal",
+             Tq=512, Tk=512, Hq=32, Hkv=4, D=128, seed=9, timed=True,
+             path="yi-6b"),
+        dict(attn, name="h2o-danube-3-4b prefill B4 T512 Hq32 Hkv8 D120 "
+             "causal, window 4096", Tq=512, Tk=512, Hq=32, Hkv=8, D=120,
+             window=4096, seed=10, timed=True, path="h2o-danube-3-4b"),
+        dict(attn, name="minicpm-2b prefill B4 T512 Hq36 Hkv36 D64 causal",
+             Tq=512, Tk=512, Hq=36, Hkv=36, D=64, seed=7, timed=True,
+             path="minicpm-2b"),
+        dict(attn, name="qwen2-vl-2b prefill B4 T768 Hq12 Hkv2 D128 causal",
+             Tq=768, Tk=768, Hq=12, Hkv=2, seed=8, timed=True,
+             path="qwen2-vl-2b"),
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
@@ -464,6 +493,9 @@ def phase_kernels() -> dict:
              s0=True),
         dict(name="P=40 N=24 (ragged rows, padded state)", B=1, T=50, H=3,
              P=40, N=24, s0=True),
+        # the serving prefill: mamba2-370m at 4 x 512 tokens
+        dict(ssd, name="mamba2-370m prefill B4 T512 H32 P64 N128", T=512,
+             seed=11, timed=True, path="mamba2-370m"),
     ]
     wkv = dict(B=4, T=256, H=64, D=64)
     wkv_cases = [
@@ -480,6 +512,9 @@ def phase_kernels() -> dict:
              s0=True),
         dict(name="D=30 (4-byte copies), T=40", B=1, T=40, H=3, D=30,
              s0=True),
+        # the serving prefill: rwkv6-7b at 4 x 512 tokens
+        dict(wkv, name="rwkv6-7b prefill B4 T512 H64 D64", T=512, seed=12,
+             timed=True, path="rwkv6-7b"),
     ]
     out = {}
     log("kernels vs plain PyTorch on the card:")
@@ -567,19 +602,19 @@ def _instrument(engine):
     return cohorts, peaks
 
 
-def profile_round(engine, state, rd: int, batch_fn):
-    """One round under ``torch.profiler`` (device activity only, so that
-    the host's own work is not slowed by tracing it): returns (the new
-    state, wall seconds, device-busy seconds — the union of every kernel,
-    copy and fill on the card — and the count of device operations).
-    The device's idle share is 1 - busy / wall."""
+def device_busy(fn):
+    """``fn()`` under ``torch.profiler`` (device activity only, so that
+    the host's own work is not slowed by tracing it): returns (its result,
+    wall seconds, device-busy seconds — the union of every kernel, copy
+    and fill on the card — and the count of device operations).  The
+    device's idle share is 1 - busy / wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _, _ = engine.run_round(state, rd, batch_fn)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.start_ns(), e.end_ns())
@@ -593,7 +628,7 @@ def profile_round(engine, state, rd: int, batch_fn):
         else:
             hi = max(hi, b)
     busy += 0 if hi is None else hi - lo
-    return state, wall, busy / 1e9, len(spans)
+    return out, wall, busy / 1e9, len(spans)
 
 
 def _run_counted(engine):
@@ -994,9 +1029,9 @@ def check_same_run(method: str, seq, vec, data) -> None:
 
 def log_idle_share(name: str, engine, state, rd: int) -> None:
     """Log round ``rd``'s device idle share from ``state``
-    (:func:`profile_round`); the round's result is dropped."""
-    _, wall, busy, n = profile_round(engine, state, rd,
-                                     engine.default_batch_fn())
+    (:func:`device_busy`); the round's result is dropped."""
+    _, wall, busy, n = device_busy(lambda: engine.run_round(
+        state, rd, engine.default_batch_fn()))
     log(f"{name}: profiled round {rd + 1} {wall:.3f} s, device busy "
         f"{busy:.4f} s over {n} device operations, idle share "
         f"{1 - busy / wall:.4f}")
@@ -1260,6 +1295,267 @@ def phase_vit() -> None:
     phase_cross_device_vit()
 
 
+# --------------------------------------------------------------- phase 7
+SERVE_RUNS = (
+    # (arch, the kernel its prefill must launch, the kernel its decode
+    # steps must launch: the dense and vlm decode attention is plain)
+    ("yi-6b", "flash_attention", None),
+    ("h2o-danube-3-4b", "flash_attention", None),
+    ("minicpm-2b", "flash_attention", None),
+    ("qwen2-vl-2b", "flash_attention", None),
+    ("mamba2-370m", "mamba2_scan", "mamba2_scan"),
+    ("rwkv6-7b", "rwkv6_scan", "rwkv6_scan"),
+)
+SERVE_BATCH = 4
+PREFILL_TOKENS = 512         # the timed prefill: batch 4 x 512 tokens
+SERVE_PROMPT, SERVE_GEN = 64, 32   # the serve loop: 64-token prompts, 32 new
+DECODE_ATOL, DECODE_RTOL = 3e-2, 5e-2   # decode vs prefill, the reference's
+                                        # (tests/test_arch_smoke.py)
+
+
+def _vlm_inputs(cfg, B: int, T: int, gen, device) -> dict:
+    """A VLM's stubbed vision prefix (B, P, d) and text M-RoPE positions
+    (3, B, T): each text token at its index on all three axes."""
+    import torch
+    if cfg.family != "vlm":
+        return {}
+    P = cfg.frontend_embed_tokens
+    return {"vision_embeds": torch.randn(B, P, cfg.d_model, generator=gen,
+                                         device=device),
+            "mrope_positions": torch.arange(T, device=device).expand(3, B, T)}
+
+
+def _rel(a, b) -> float:
+    """Largest difference over the largest magnitude of ``b``."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def _walk(lm, params, toks, dtype=None):
+    """Feed ``toks`` (B, T) one at a time through a fresh cache on their
+    device (every leaf in ``dtype`` if given); the logits after each."""
+    from repro_torch.models import init_cache
+    cache = init_cache(lm.cfg, toks.shape[0], toks.shape[1],
+                       device=toks.device)
+    if dtype is not None:
+        cache = {k: v.to(dtype) for k, v in cache.items()}
+    out = []
+    for t in range(toks.shape[1]):
+        logits, cache = lm.decode_step(params, toks[:, t:t + 1], cache, t)
+        out.append(logits)
+    return out
+
+
+def check_serving_reduced(arch: str, device="cuda") -> None:
+    """The reduced config on the card: the decode walk's logits after the
+    last prompt token against ``prefill``'s, within the reference's atol
+    3e-2 / rtol 5e-2 (the bf16 caches bound the agreement)."""
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build
+    cfg = get_reduced_config(arch)
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 10), generator=gen,
+                         device=device)
+    dec = _walk(lm, params, toks)[-1]
+    pf = lm.prefill(params, {"tokens": toks})
+    err = float((dec - pf).abs().max())
+    ok = bool(((dec - pf).abs() <= DECODE_ATOL + DECODE_RTOL * pf.abs()).all())
+    log(f"  {arch} reduced on the card: decode vs prefill max_abs_err "
+        f"{err:.3e} (atol {DECODE_ATOL:g} rtol {DECODE_RTOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch} reduced: decode and prefill disagree")
+
+
+def check_serving_two_layers(arch: str, device="cuda") -> None:
+    """Every published width, depth cut to 2: prefill logits on the card
+    against the CPU (relative 1e-4: the largest difference over the
+    largest logit; a VLM with its vision prefix and M-RoPE positions),
+    and 8 decode steps of one prompt on each, each carrying its own
+    cache (the distance is logged: a bf16 cache entry on a rounding
+    boundary may round either way and move the later steps)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    lm = build(cfg)
+    on_card = lm.init(0, device=device)
+    params = tree_map(lambda t: t.cpu(), on_card)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    batch = {"tokens": toks, **_vlm_inputs(cfg, 2, 32, gen, "cpu")}
+    got = lm.prefill(on_card, {k: v.to(device) for k, v in batch.items()})
+    want = lm.prefill(params, batch)
+    rel = _rel(got.cpu(), want)
+    ok = math.isfinite(rel) and rel <= LOSS_RTOL
+    walks = [_walk(lm, p, toks[:, :8].to(d)) for p, d in
+             ((on_card, device), (params, "cpu"))]
+    dec = max(_rel(a.cpu(), b) for a, b in zip(*walks))
+    log(f"  {arch} at every width, 2 layers: prefill{' (vision prefix, '
+        'M-RoPE)' if cfg.family == 'vlm' else ''} card vs cpu rel err "
+        f"{rel:.3e} (tol {LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}; 8 decode "
+        f"steps card vs cpu, largest rel err {dec:.3e} (logged)")
+    if not ok:
+        raise AssertionError(f"{arch}: prefill on the card and the CPU "
+                             f"disagree ({rel})")
+
+
+def _counted(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: (its result, the launches, synchronised seconds)."""
+    import torch
+    counters = _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counters.items()}, \
+        time.perf_counter() - t0
+
+
+def _bounds(cfg, params, B: int, T: int, P: int, gen: int):
+    """The least times of a prefill of B x T tokens and of one decode step
+    at batch B (prompts of P tokens, ``gen`` generated): each the larger
+    of its bytes at 3.35 TB/s and its flops at fp32 67 TFLOP/s (the port
+    computes in fp32 with TF32 off), as ``bound_ms`` tuples.  Parameters
+    are read once, an untied embedding only for the rows looked up.  A
+    prefill multiplies every weight but the head by its B x T tokens
+    (a VLM's vision prefix among them) and the head by the B last ones,
+    plus attention's 4 hd flops per live (q, k) pair and q head.  A decode
+    step multiplies every weight by its B tokens, reads the KV slots
+    written so far (the mean over the generated steps) and writes one,
+    and reads and writes an SSM state whole."""
+    from repro_torch.configs.shapes import cache_specs
+    from repro_torch.tree import tree_leaves
+    n = sum(t.numel() for t in tree_leaves(params))
+    head = cfg.d_model * cfg.vocab_size
+    touched = n if cfg.tie_embeddings else n - head   # drop an untied embed
+    t_all = T + (cfg.frontend_embed_tokens if cfg.family == "vlm" else 0)
+    per_pair = 4.0 * cfg.head_dim * cfg.num_heads * cfg.num_layers * B
+    window = cfg.sliding_window or t_all
+    pairs = sum(min(i + 1, window) for i in range(t_all))
+    pf = bound_ms(2.0 * B * t_all * (touched - head) + 2.0 * B * head
+                  + per_pair * pairs,
+                  4.0 * (touched + B * t_all * cfg.d_model))
+    cache_bytes, attn = 0.0, 0.0
+    for key, spec in cache_specs(cfg, B, P + gen).items():
+        size = math.prod(spec.shape) * spec.dtype.itemsize
+        if key in ("k", "v"):
+            S = spec.shape[2]
+            valid = sum(min(P + g + 1, S) for g in range(gen)) / gen
+            cache_bytes += size * (valid + 1) / S
+            attn += per_pair * valid / 2    # q.k for "k", p.v for "v"
+        else:
+            cache_bytes += 2 * size
+    dec = bound_ms(2.0 * B * touched + attn,
+                   4.0 * (touched + B * cfg.d_model) + cache_bytes)
+    return pf, dec
+
+
+def phase_serve_model(arch: str, prefill_kernel: str, decode_kernel,
+                      device="cuda") -> dict:
+    """Serve ``arch`` at every published width and depth on the card:
+    seeded init, one timed ``LM.prefill`` of 4 x 512 tokens (a VLM's
+    256 vision embeddings and M-RoPE positions too) after an untimed
+    one, then ``launch.serve.serve`` at batch 4 (64-token prompts, 32
+    generated tokens).  Checks the launches (K1 none; ``prefill_kernel``
+    on the prefill; ``decode_kernel`` on the decode steps, K2 on none)
+    and finite logits; logs the decode walk against a prefill of the same
+    prompts.  Returns the prefill's and the serve loop's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build
+    from repro_torch.tree import tree_bytes
+    cfg = get_config(arch)
+    check_serving_reduced(arch, device)
+    check_serving_two_layers(arch, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pbytes = tree_bytes(params)
+    gen = torch.Generator(device=device).manual_seed(4)
+    B, T = SERVE_BATCH, PREFILL_TOKENS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                     generator=gen, device=device),
+             **_vlm_inputs(cfg, B, T, gen, device)}
+    first_s = _counted(lambda: lm.prefill(params, batch))[2]
+    logits, pf_launch, pf_s = _counted(lambda: lm.prefill(params, batch))
+    pf_peak = torch.cuda.max_memory_allocated()
+    prompt = torch.randint(0, cfg.vocab_size, (B, SERVE_PROMPT),
+                           generator=gen, device=device)
+    res, dec_launch, _ = _counted(lambda: serve(lm, params, prompt,
+                                                SERVE_GEN))
+    peak = torch.cuda.max_memory_allocated()
+    pf_prompt = lm.prefill(params, {"tokens": prompt})
+    dist = float((res.prompt_logits - pf_prompt).abs().max())
+    within = bool(((res.prompt_logits - pf_prompt).abs()
+                   <= DECODE_ATOL + DECODE_RTOL * pf_prompt.abs()).all())
+    # what the bf16 cache leaves cost: the same walk with every leaf fp32
+    dist32 = float((_walk(lm, params, prompt, torch.float32)[-1]
+                    - pf_prompt).abs().max())
+    _, wall, busy, n_ops = device_busy(lambda: _walk(lm, params,
+                                                     prompt[:, :8]))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (logits, res.logits, res.prompt_logits))
+    step_ms = res.decode_seconds / SERVE_GEN * 1e3
+    (pf_b, pf_by, _), (dec_b, dec_by, _) = _bounds(
+        cfg, params, B, T, SERVE_PROMPT, SERVE_GEN)
+    log(f"serve {arch}: d_model {cfg.d_model} layers {cfg.num_layers} (all) "
+        f"vocab {cfg.vocab_size} tied {cfg.tie_embeddings}, "
+        f"{cfg.param_count() / 1e9:.3f} B params, {pbytes / 1e9:.2f} GB "
+        f"fp32, init {init_s:.2f} s")
+    log(f"  prefill {B} x {T} tokens"
+        f"{f' + {cfg.frontend_embed_tokens} vision' if cfg.family == 'vlm' else ''}"
+        f": {pf_s:.4f} s (first call {first_s:.4f} s), bound {pf_b / 1e3:.4f}"
+        f" s ({pf_by}), peak {pf_peak / 2**30:.2f} GiB, launches {pf_launch}")
+    log(f"  serve {B} x ({SERVE_PROMPT} prompt + {SERVE_GEN} generated): "
+        f"prompt walk {res.prompt_seconds:.3f} s, decode {step_ms:.3f} ms a "
+        f"token (a step of {B} sequences), bound {dec_b:.3f} ms ({dec_by}), "
+        f"{SERVE_GEN * B / res.decode_seconds:.1f} tok/s, peak "
+        f"{peak / 2**30:.2f} GiB (parameters {pbytes / 2**30:.2f} GiB), "
+        f"launches {dec_launch}")
+    log(f"  profiled 8-step decode walk: {wall:.3f} s, device busy "
+        f"{busy:.4f} s over {n_ops} device operations, idle share "
+        f"{1 - busy / wall:.4f}")
+    log(f"  decode walk vs prefill of the same prompts: max_abs_err "
+        f"{dist:.3e} ({'within' if within else 'NOT within'} atol "
+        f"{DECODE_ATOL:g} rtol {DECODE_RTOL:g}, logged; largest |logit| "
+        f"{float(pf_prompt.abs().max()):.3e}); with fp32 cache leaves "
+        f"{dist32:.3e}; finite {finite}")
+    if not finite:
+        raise AssertionError(f"serve {arch}: non-finite logits")
+    bad = []
+    if pf_launch["chunked_cross_entropy"] or dec_launch["chunked_cross_entropy"]:
+        bad.append("K1 launched")
+    if pf_launch[prefill_kernel] <= 0:
+        bad.append(f"prefill launched no {prefill_kernel}")
+    if dec_launch["flash_attention"]:
+        bad.append("decode launched flash_attention")
+    if decode_kernel and dec_launch[decode_kernel] <= 0:
+        bad.append(f"decode launched no {decode_kernel}")
+    if bad:
+        raise AssertionError(f"serve {arch}: {bad}")
+    del params, logits, res, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill": pf_launch, "decode": dec_launch}
+
+
+def phase_serving() -> dict:
+    log("serving: every published width and depth, batch 4")
+    return {arch: phase_serve_model(arch, pk, dk)
+            for arch, pk, dk in SERVE_RUNS}
+
+
 PATHS = (
     # (arch, layers, kernels that must launch on the path, method)
     ("qwen2-7b", 4, ("chunked_cross_entropy", "flash_attention"), "fedepth"),
@@ -1304,13 +1600,23 @@ def main() -> int:
             launches[name] += n
     phase_images()
     phase_vit()
-    # launches: the sum over the runs, each read from its own run; K1's
-    # heads each with the launches of the runs it serves, summed
-    for head in numbers["chunked_cross_entropy"]["heads"]:
-        head["runs"] = {method: run["chunked_cross_entropy"]
-                        for (arch, method), run in by_run.items()
-                        if arch == head["path"]}
-        head["launches"] = sum(head["runs"].values())
+    for arch, runs in phase_serving().items():
+        for stage, run in runs.items():
+            by_run[arch, f"serve {stage}"] = run
+            for name, n in run.items():
+                launches[name] += n
+    # launches: the sum over the runs, each read from its own run; the
+    # serving runs' also apart; each kernel's heads (K1 per LM head, K2 at
+    # the serving prefill shapes) with the launches of their arch's runs
+    for name, rec in numbers.items():
+        for head in rec.get("heads", []):
+            head["runs"] = {method: run[name]
+                            for (arch, method), run in by_run.items()
+                            if arch == head["path"]}
+            head["launches"] = sum(head["runs"].values())
+        rec["serving"] = {f"{arch} {method[len('serve '):]}": run[name]
+                          for (arch, method), run in by_run.items()
+                          if method.startswith("serve ")}
     kernels = [dict(name=name, **KERNEL_META[name], launches=launches[name],
                     **numbers[name]) for name in KERNEL_META]
     log(f"chip_smoke: all phases passed in "

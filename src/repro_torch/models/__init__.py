@@ -1,2 +1,3 @@
-"""Model families of the port (dense transformer so far)."""
-from repro_torch.models.api import LM, build, image_model  # noqa: F401
+"""Model families of the port: dense and VLM transformers, mamba2, rwkv6,
+PreResNet and ViT."""
+from repro_torch.models.api import LM, build, image_model, init_cache  # noqa: F401

@@ -1,7 +1,9 @@
-"""Unified model API (port of ``repro.models.api``: the dense family and
-the attention-free ``ssm`` family, mamba2 and rwkv6).
+"""Unified model API (port of ``repro.models.api``: the dense and vlm
+families and the attention-free ``ssm`` family, mamba2 and rwkv6).
 
-``build(cfg)`` -> ``LM`` with ``init``, ``loss_fn`` and the depth hooks
+``build(cfg)`` -> ``LM`` with ``init``, ``loss_fn``, the serving entry
+points ``prefill`` (last-position logits) and ``decode_step`` (one token
+over a cache from :func:`init_cache`), and the depth hooks
 ``num_depth_units`` / ``apply_range`` / ``forward_hidden`` that
 ``repro_torch.core.blockwise`` consumes.  ``image_model(cfg)`` is the
 module (``init``, ``apply``) of an image config: PreResNet or ViT.
@@ -9,11 +11,12 @@ module (``init``, ``apply``) of an image config: PreResNet or ViT.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Union
+from typing import Any, Dict, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import cache_specs
 from repro_torch.configs.vit_t16 import ViTConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mamba2_lm, resnet, rwkv6, transformer, vit
@@ -37,6 +40,22 @@ class LM:
     def loss_fn(self, params, batch):
         return self.module.loss_fn(params, self.cfg, batch)
 
+    # ---- serving: no gradient ---------------------------------------------
+    @torch.inference_mode()
+    def prefill(self, params, batch) -> torch.Tensor:
+        """Last-position logits (B, 1, V) of ``batch["tokens"]`` (and, for
+        a VLM, its optional ``vision_embeds`` / ``mrope_positions``)."""
+        return self.module.prefill(params, self.cfg, batch)
+
+    @torch.inference_mode()
+    def decode_step(self, params, tokens, cache, cache_index: int, *,
+                    mrope_positions=None):
+        """One token (B, 1) at position ``cache_index`` -> (logits (B, 1,
+        V), the new cache)."""
+        return self.module.decode_step(params, self.cfg, tokens, cache,
+                                       int(cache_index),
+                                       mrope_positions=mrope_positions)
+
     # ---- depth structure for FeDepth ------------------------------------
     @property
     def num_depth_units(self) -> int:
@@ -55,14 +74,23 @@ class LM:
 
 
 def build(cfg: ModelConfig) -> LM:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         transformer._check_family(cfg)
         return LM(cfg, transformer)
     if cfg.family == "ssm":
         return LM(cfg, mamba2_lm if cfg.ssm_kind == "mamba2" else rwkv6)
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (dense and ssm "
-        f"only)")
+        f"model family {cfg.family!r} is not ported yet (dense, vlm and "
+        f"ssm only)")
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A zeroed decode cache on ``device`` (the GPU unless ``"cpu"``),
+    with the shapes and dtypes of ``configs.shapes.cache_specs``."""
+    dev = resolve_device(device)
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+            for k, s in cache_specs(cfg, batch, seq_len).items()}
 
 
 def image_model(cfg):

@@ -1,10 +1,14 @@
-"""GQA attention layer: params and full-sequence forward (port of
-``repro.models.attention``; decode waits for the serving slice).
+"""GQA attention layer: params, full-sequence forward and one-token
+decode over a KV cache (port of ``repro.models.attention``).
 
-Calls ``repro_torch.kernels.ops.attention``: the CUDA flash-attention
-kernel on the card, its plain version on the CPU.
+The forward calls ``repro_torch.kernels.ops.attention``: the CUDA
+flash-attention kernel on the card, its plain version on the CPU.  Decode
+attends one query over the cache in plain PyTorch, as the reference does
+in plain ``jnp``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -46,16 +50,62 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
             v.reshape(B, T, cfg.num_kv_heads, hd))
 
 
-def forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
-            positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention. x: (B, T, D); positions: (B, T)."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
-    q, k, v = _project_qkv(p, cfg, x)
+def _rotate(cfg: ModelConfig, q, k, positions, mrope_positions):
+    """M-RoPE when the config has sections and the caller gives (3, B, T)
+    positions, else 1-D RoPE at ``positions`` (none for whisper, whose
+    positions are learned)."""
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        return (common.apply_mrope(q, mrope_positions, cfg.rope_theta,
+                                   cfg.mrope_sections),
+                common.apply_mrope(k, mrope_positions, cfg.rope_theta,
+                                   cfg.mrope_sections))
     if cfg.num_heads and not cfg.is_encoder_decoder:
-        q = common.apply_rope(q, positions, cfg.rope_theta)
-        k = common.apply_rope(k, positions, cfg.rope_theta)
+        return (common.apply_rope(q, positions, cfg.rope_theta),
+                common.apply_rope(k, positions, cfg.rope_theta))
+    return q, k
+
+
+def forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor, *,
+            mrope_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence causal attention. x: (B, T, D); positions: (B, T);
+    mrope_positions: (3, B, T) or None."""
+    q, k, v = _project_qkv(p, cfg, x)
+    q, k = _rotate(cfg, q, k, positions, mrope_positions)
     out = ops.attention(q, k, v, causal=True,
                         sliding_window=cfg.sliding_window)
     B, T = out.shape[:2]
     return out.reshape(B, T, -1) @ p["wo"]
+
+
+def decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+           cache_k: torch.Tensor, cache_v: torch.Tensor, cache_index: int,
+           *, mrope_positions: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """One-token decode. x: (B, 1, D); cache_k, cache_v: (B, S, Hkv, hd),
+    S the KV window (the sequence length, or the sliding window if set).
+
+    Writes the new K / V, in the cache's dtype, into one slot of the
+    caches in place: ``cache_index % S`` (a ring buffer) under a sliding
+    window, else ``min(cache_index, S - 1)``; attends over the written
+    slots with an fp32 softmax, each KV head for its group of q heads.
+    Returns out (B, 1, D)."""
+    B, S, Hkv, hd = cache_k.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    pos = torch.full((B, 1), cache_index, dtype=torch.int32, device=x.device)
+    q, k = _rotate(cfg, q, k, pos, mrope_positions)
+
+    slot = cache_index % S if cfg.sliding_window > 0 \
+        else min(cache_index, S - 1)
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+
+    # q head g * rep + r reads KV head g; slots past cache_index are
+    # unwritten (a ring buffer's are all written once cache_index >= S)
+    qf = q.float().reshape(B, Hkv, -1, hd) * (hd ** -0.5)
+    logits = torch.einsum("bgrd,bkgd->bgrk", qf, cache_k.float())
+    valid = torch.arange(S, device=x.device) < min(cache_index + 1, S)
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrk,bkgd->bgrd", probs, cache_v.float()).to(x.dtype)
+    return out.reshape(B, 1, -1) @ p["wo"]

@@ -94,6 +94,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (B, T, H, D); positions: (3, B, T),
+    the temporal / height / width position ids; ``sections`` splits the
+    D/2 rotary frequencies among the three axes (they sum to D/2), and
+    each frequency rotates by its axis's position."""
+    D = x.shape[-1]
+    if sum(sections) != D // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {D // 2}")
+    freqs = rope_freqs(D, theta, x.device)                  # (D/2,)
+    axis_of_slot = torch.cat([torch.full((s,), i, device=x.device)
+                              for i, s in enumerate(sections)])
+    pos_bt3 = positions.movedim(0, -1).float()              # (B, T, 3)
+    angles = pos_bt3[..., axis_of_slot] * freqs             # (B, T, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # misc
 # --------------------------------------------------------------------------

@@ -7,7 +7,7 @@ parameter dict per layer, so a FeDepth block [lo, hi) is a list slice.
 The head is tied to the embedding, so the FeDepth runner reports
 ``prefix_stable=False``: head updates reach the embedding that feeds the
 frozen prefix, and buffered activations are re-buffered per subproblem.
-Prefill and decode wait for the serving slice.
+Decode carries each layer's conv tail and SSM state (``init_cache``).
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ def apply_layer_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
                       hi: int) -> Tuple[torch.Tensor, float]:
     """Residual layers [lo, hi) over hidden states x; no auxiliary loss."""
     for lp in p["layers"][lo:hi]:
-        x = x + mamba2.forward(lp, cfg, x)
+        x = x + mamba2.forward(lp, cfg, x)[0]
     return x, 0.0
 
 
@@ -59,3 +59,32 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     ce, n = ops.cross_entropy(x, common.head_weight(p, cfg),
                               batch["labels"])
     return ce, {"ce": ce, "aux": 0.0, "n_tokens": n}
+
+
+def prefill(p: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """The prompt's forward: last-position logits (B, 1, V)."""
+    x, _ = forward_hidden(p, cfg, batch["tokens"])
+    x = common.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    return x @ common.head_weight(p, cfg)
+
+
+def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], cache_index: int, *,
+                mrope_positions=None):
+    """One decode step.  cache: {"ssm_state": (L, B, H, P, N) fp32,
+    "conv_state": (L, B, CONV_K, d_inner) bf16}.  Returns (logits (B, 1,
+    V), the new cache); ``cache`` is left as it was.  ``mrope_positions``
+    (a VLM's) is ignored."""
+    x = p["embed"][tokens]                      # (B, 1, d)
+    convs, states = [], []
+    for lp, conv, ssm in zip(p["layers"], cache["conv_state"],
+                             cache["ssm_state"]):
+        out, new_conv, new_ssm = mamba2.forward(
+            lp, cfg, x, conv_state=conv.to(x.dtype), ssm_state=ssm)
+        x = x + out
+        convs.append(new_conv)
+        states.append(new_ssm)
+    x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return x @ common.head_weight(p, cfg), {
+        "conv_state": torch.stack(convs).to(cache["conv_state"].dtype),
+        "ssm_state": torch.stack(states)}

@@ -8,12 +8,13 @@ Per layer:
     and the output gate;
   * channel-mix: token-shift lerp and a squared-ReLU FFN.
 ``params["layers"]`` is a list with one parameter dict per layer, so a
-FeDepth block [lo, hi) is a list slice.  Prefill and decode (the state
-and token-shift caches) wait for the serving slice.
+FeDepth block [lo, hi) is a list slice.  Decode carries each layer's WKV
+state and its two token shifts (the last input of the time mix and of
+the channel mix), O(1) in sequence length.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,16 +81,22 @@ def init(cfg: ModelConfig, *, generator: torch.Generator, device,
     }
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """The x_{t-1} sequence, zeros at t = 0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _token_shift(x: torch.Tensor,
+                 shifted_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The x_{t-1} sequence: zeros at t = 0, or the carried (B, 1, d)
+    input of the previous call."""
+    if shifted_in is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([shifted_in.to(x.dtype), x[:, :-1]], dim=1)
 
 
-def _time_mix(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _time_mix(lp: Params, cfg: ModelConfig, x: torch.Tensor, state=None,
+              shift=None):
+    """Returns (output, the new WKV state, the last input (B, 1, d))."""
     B, T, d = x.shape
     hd = cfg.rwkv_head_dim
     H = d // hd
-    xs = _token_shift(x)
+    xs = _token_shift(x, shift)
     base = xs + (x - xs) * 0.5  # anchor of the data-dependent mix
     lora = torch.tanh(base @ lp["mix_lora_a"]).reshape(B, T, 5, LORA_R)
     dyn = torch.einsum("btfr,frd->btfd", lora, lp["mix_lora_b"])
@@ -104,37 +111,43 @@ def _time_mix(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = (lp["w_base"] + torch.tanh(mw @ lp["w_lora_a"]) @ lp["w_lora_b"]
          ).reshape(B, T, H, hd)
 
-    y, _ = ops.rwkv6(r, k, v, w, lp["bonus_u"])
+    y, new_state = ops.rwkv6(r, k, v, w, lp["bonus_u"], state)
     # per-head group norm, population variance (as jnp.var)
     yh = y.float()
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, unbiased=False)
     yh = (yh - mu) * torch.rsqrt(var + GROUP_NORM_EPS)
     y = (yh.reshape(B, T, d) * lp["ln_x"]).to(x.dtype)
-    return (y * g) @ lp["wo"]
+    return (y * g) @ lp["wo"], new_state, x[:, -1:]
 
 
-def _channel_mix(lp: Params, x: torch.Tensor) -> torch.Tensor:
-    xs = _token_shift(x)
+def _channel_mix(lp: Params, x: torch.Tensor, shift=None):
+    """Returns (output, the last input (B, 1, d))."""
+    xs = _token_shift(x, shift)
     mk = xs + (x - xs) * lp["cm_mix"][0]
     mr = xs + (x - xs) * lp["cm_mix"][1]
     k = torch.square(torch.relu(mk @ lp["cm_k"]))
-    return torch.sigmoid(mr @ lp["cm_r"]) * (k @ lp["cm_v"])
+    return torch.sigmoid(mr @ lp["cm_r"]) * (k @ lp["cm_v"]), x[:, -1:]
 
 
-def _layer_forward(lp: Params, cfg: ModelConfig,
-                   x: torch.Tensor) -> torch.Tensor:
+def _layer_forward(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                   state=None, shifts=None):
+    """Returns (x, the new WKV state, (time-mix, channel-mix) last
+    inputs)."""
     h = common.rms_norm(x, lp["tm_norm"], cfg.norm_eps)
-    x = x + _time_mix(lp, cfg, h)
+    tm, new_state, tm_last = _time_mix(lp, cfg, h, state,
+                                       None if shifts is None else shifts[0])
+    x = x + tm
     h = common.rms_norm(x, lp["cm_norm"], cfg.norm_eps)
-    return x + _channel_mix(lp, h)
+    cm, cm_last = _channel_mix(lp, h, None if shifts is None else shifts[1])
+    return x + cm, new_state, (tm_last, cm_last)
 
 
 def apply_layer_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
                       hi: int) -> Tuple[torch.Tensor, float]:
     """Layers [lo, hi) over hidden states x; no auxiliary loss."""
     for lp in p["layers"][lo:hi]:
-        x = _layer_forward(lp, cfg, x)
+        x = _layer_forward(lp, cfg, x)[0]
     return x, 0.0
 
 
@@ -150,3 +163,32 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
     ce, n = ops.cross_entropy(x, common.head_weight(p, cfg), batch["labels"])
     return ce, {"ce": ce, "aux": 0.0, "n_tokens": n}
+
+
+def prefill(p: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """The prompt's forward: last-position logits (B, 1, V)."""
+    x, _ = forward_hidden(p, cfg, batch["tokens"])
+    x = common.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    return x @ common.head_weight(p, cfg)
+
+
+def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], cache_index: int, *,
+                mrope_positions=None):
+    """One decode step.  cache: {"rwkv_state": (L, B, H, hd, hd) fp32,
+    "rwkv_shift": (L, 2, B, d)}.  Returns (logits (B, 1, V), the new
+    cache); ``cache`` is left as it was; ``mrope_positions`` (a VLM's) is
+    ignored.  The new shifts are in the
+    hidden states' dtype (fp32), not the bf16 of ``init_cache``'s zeros,
+    as the reference's ``decode_step`` returns them."""
+    x = p["embed"][tokens]                      # (B, 1, d)
+    states, shifts = [], []
+    for lp, state, shift in zip(p["layers"], cache["rwkv_state"],
+                                cache["rwkv_shift"]):
+        x, new_state, (tm_last, cm_last) = _layer_forward(
+            lp, cfg, x, state, (shift[0][:, None], shift[1][:, None]))
+        states.append(new_state)
+        shifts.append(torch.stack([tm_last[:, 0], cm_last[:, 0]]))
+    x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return x @ common.head_weight(p, cfg), {
+        "rwkv_state": torch.stack(states), "rwkv_shift": torch.stack(shifts)}

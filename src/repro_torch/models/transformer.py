@@ -1,14 +1,16 @@
-"""Decoder-only transformer LM, dense family (port of
-``repro.models.transformer``; MoE, VLM, prefill and decode wait).
+"""Decoder-only transformer LM, dense and VLM families (port of
+``repro.models.transformer``; MoE waits): training loss, prefill and
+one-token decode over a stacked KV cache.
 
 Depth structure: one unit is one layer.  The reference stacks units on a
 leading axis for ``lax.scan``; here ``params["units"]`` is a list with one
 parameter dict per layer, so a FeDepth block [lo, hi) is a list slice and
-the layers run as a Python loop.
+the layers run as a Python loop.  The VLM's vision tower is stubbed:
+``vision_embeds`` (B, P, d) are prepended to the token embeddings.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -20,10 +22,10 @@ Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe_every != 1:
+    if cfg.family not in ("dense", "vlm") or cfg.moe_every != 1:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported, got "
-            f"{cfg.family!r}")
+            f"{cfg.name}: only the dense and vlm families are ported, got "
+            f"{cfg.family!r} with moe_every {cfg.moe_every}")
 
 
 # --------------------------------------------------------------------------
@@ -66,16 +68,24 @@ def init(cfg: ModelConfig, *, generator: torch.Generator, device,
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
-def _layer_forward(layer: Params, cfg: ModelConfig, x, positions):
-    h = common.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    x = x + attention.forward(layer["attn"], cfg, h, positions)
+def _mlp(layer: Params, cfg: ModelConfig, x):
+    """The layer's SwiGLU sub-block: pre-norm, MLP, residual."""
     h = common.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     mlp = layer["mlp"]
     return x + common.swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
 
 
+def _layer_forward(layer: Params, cfg: ModelConfig, x, positions,
+                   mrope_positions):
+    h = common.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    x = x + attention.forward(layer["attn"], cfg, h, positions,
+                              mrope_positions=mrope_positions)
+    return _mlp(layer, cfg, x)
+
+
 def apply_unit_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
-                     hi: int) -> Tuple[torch.Tensor, float]:
+                     hi: int, *, mrope_positions=None
+                     ) -> Tuple[torch.Tensor, float]:
     """Run units [lo, hi) over hidden states x at positions 0..T-1.
     Returns (x, aux_loss); the dense family has no auxiliary loss.  No
     per-unit rematerialization: a FeDepth block step keeps one block's
@@ -83,27 +93,78 @@ def apply_unit_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
     positions = common.causal_positions(x.shape[0], x.shape[1],
                                         device=x.device)
     for layer in p["units"][lo:hi]:
-        x = _layer_forward(layer, cfg, x, positions)
+        x = _layer_forward(layer, cfg, x, positions, mrope_positions)
     return x, 0.0
 
 
-def embed_inputs(p: Params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens]
+def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                 vision_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    x = p["embed"][tokens]
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
-def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor):
-    """Embeddings -> every unit -> hidden states (pre final-norm)."""
-    return apply_unit_range(p, cfg, embed_inputs(p, cfg, tokens), 0,
-                            cfg.num_layers)
+def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   vision_embeds=None, mrope_positions=None):
+    """Embeddings (after the vision prefix, if any) -> every unit ->
+    hidden states (pre final-norm).  With both a vision prefix of P
+    tokens and text ``mrope_positions`` (3, B, T), the prefix takes the
+    stub positions 0..P-1 on all three axes and the text's are shifted
+    by P."""
+    x = embed_inputs(p, cfg, tokens, vision_embeds=vision_embeds)
+    if mrope_positions is not None and vision_embeds is not None:
+        P = vision_embeds.shape[1]
+        vis = torch.arange(P, dtype=mrope_positions.dtype,
+                           device=x.device).expand(3, x.shape[0], P)
+        mrope_positions = torch.cat([vis, mrope_positions + P], dim=2)
+    return apply_unit_range(p, cfg, x, 0, cfg.num_layers,
+                            mrope_positions=mrope_positions)
+
+
+def _forward_batch(p: Params, cfg: ModelConfig, batch):
+    return forward_hidden(p, cfg, batch["tokens"],
+                          vision_embeds=batch.get("vision_embeds"),
+                          mrope_positions=batch.get("mrope_positions"))
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Mean next-token CE on a train batch."""
-    x, aux = forward_hidden(p, cfg, batch["tokens"])
+    """Mean next-token CE on a train batch; no loss on the vision
+    prefix."""
+    x, aux = _forward_batch(p, cfg, batch)
     x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    if batch.get("vision_embeds") is not None:
+        x = x[:, batch["vision_embeds"].shape[1]:]
     ce, n = ops.cross_entropy(x, common.head_weight(p, cfg),
                               batch["labels"])
     loss = ce + cfg.router_aux_coef * aux
     return loss, {"ce": ce, "aux": aux, "n_tokens": n}
+
+
+def prefill(p: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """The prompt's forward: last-position logits (B, 1, V)."""
+    x, _ = _forward_batch(p, cfg, batch)
+    x = common.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    return x @ common.head_weight(p, cfg)
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], cache_index: int, *,
+                mrope_positions=None):
+    """One decode step.  tokens: (B, 1); cache: {"k", "v"}: (L, B, S, Hkv,
+    hd) in bf16, each layer's slot written in place.  Returns (logits (B,
+    1, V), ``cache``)."""
+    x = p["embed"][tokens]
+    for i, layer in enumerate(p["units"]):
+        h = common.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        a = attention.decode(layer["attn"], cfg, h, cache["k"][i],
+                             cache["v"][i], cache_index,
+                             mrope_positions=mrope_positions)
+        x = _mlp(layer, cfg, x + a)
+    x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return x @ common.head_weight(p, cfg), cache

@@ -22,12 +22,18 @@ reference's HWIO to the port's OIHW and back.  A tuple or list of trees
 crosses tree by tree: DepthFL's ``(params, aux)`` state and SplitMix's
 list of base nets.
 
+A decode cache (``cache_from_reference`` / ``cache_to_reference``) keeps
+the reference's layout on both sides: a dict of leaves stacked on a
+leading layer axis, each in the reference's dtype.  numpy has no bf16 of
+its own, so a bf16 leaf crosses as float32 (exact) and ``dtypes`` names
+the dtype to cast it back to.
+
 Arrays cross as numpy, so this module needs neither JAX nor the reference
 package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -117,3 +123,23 @@ def params_to_reference(params: Any) -> Any:
         out["units"] = {"sub_0": _stack(host["units"])}
     return out
 
+
+def cache_from_reference(cache: Dict[str, Any], *, device: DeviceLike = None,
+                         dtypes: Optional[Dict[str, torch.dtype]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """A reference decode cache (numpy arrays) -> tensors on ``device``
+    (the GPU unless ``"cpu"``), each in ``dtypes[key]`` if given, else in
+    the array's dtype."""
+    dev = resolve_device(device)
+    out = {}
+    for k, a in cache.items():
+        t = torch.tensor(np.array(a), device=dev)
+        out[k] = t.to(dtypes[k]) if dtypes and k in dtypes else t
+    return out
+
+
+def cache_to_reference(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's decode cache -> numpy arrays in the same layout; bf16
+    leaves as float32 (exact)."""
+    return {k: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+            for k, t in cache.items()}

@@ -20,7 +20,9 @@ whose ReLU inputs take the same branch on both devices), and one round of
 each image method on the reduced config (atol 1e-4, rtol 1e-3), with no
 kernel launched.  So are the reduced ViT's loss and gradients (atol 1e-5,
 rtol 1e-4) and one stacked (vectorized) FeDepth group update of the
-reduced PreResNet and ViT (atol 1e-4, rtol 1e-3).
+reduced PreResNet and ViT (atol 1e-4, rtol 1e-3).  Serving: each
+family's reduced prefill and 8 decode steps on the card against the CPU
+(K2 on the dense and vlm prefills, K3 / K4 on every ssm decode step).
 """
 import dataclasses
 
@@ -45,7 +47,7 @@ from repro_torch.kernels.chunked_ce import chunked_cross_entropy  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import mamba2_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
-from repro_torch.models import build, resnet, vit  # noqa: E402
+from repro_torch.models import build, init_cache, resnet, vit  # noqa: E402
 from repro_torch.testing.relu import resnet_gradients_on  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -80,6 +82,13 @@ ATTN_CASES = [
     (1, 77, 93, 28, 4, 128, True, 0, 16),
     (2, 256, 256, 7, 1, 128, True, 100, 0),
     (1, 130, 130, 4, 1, 64, True, 31, 3),
+    # serving prefills: minicpm-2b's group of 1 (36 q and kv heads, D 64),
+    # qwen2-vl-2b's 256 vision + 512 text tokens (12 / 2 heads, D 128),
+    # yi-6b's group of 8 and h2o-danube-3-4b's D 120 under its window
+    (1, 200, 200, 36, 36, 64, True, 0, 0),
+    (4, 768, 768, 12, 2, 128, True, 0, 0),
+    (4, 512, 512, 32, 4, 128, True, 0, 0),
+    (4, 512, 512, 32, 8, 120, True, 4096, 0),
 ]
 CE_CASES = [
     # (N, D, V, share of labels ignored)
@@ -104,6 +113,7 @@ SSD_CASES = [
     (1, 50, 3, 40, 24, 1.0, True),      # a ragged row block, padded state
     (1, 45, 2, 64, 256, 1.0, True),     # the widest state the block takes
     (1, 30, 2, 24, 18, 1.0, True),      # N % 4 != 0: 4-byte copies of B, C
+    (4, 512, 32, 64, 128, 1.0, False),  # mamba2-370m's serving prefill
 ]
 WKV_CASES = [
     # (B, T, H, D, initial state, exp(w) overflows)
@@ -118,6 +128,7 @@ WKV_CASES = [
     (1, 50, 2, 100, True, False),
     (1, 40, 3, 30, True, False),
     (1, 33, 5, 64, True, False),
+    (4, 512, 64, 64, False, False),     # rwkv6-7b's serving prefill
 ]
 SCAN_TOL = 1e-4
 
@@ -366,6 +377,53 @@ def test_round_on_the_card_matches_the_cpu(cuda, arch):
 
 
 KERNELS = (flash_attention, chunked_cross_entropy, mamba2_scan, rwkv6_scan)
+
+
+SERVE_ARCHS = ["yi-6b", "h2o-danube-3-4b", "minicpm-2b", "qwen2-vl-2b",
+               "mamba2-370m", "rwkv6-7b"]
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced model's prefill (K2 on the dense and vlm families) and
+    8 decode steps on the card against the CPU, each step from the CPU's
+    cache (a bf16 entry on a rounding boundary may round either way, and
+    carried on it would move later steps): logits atol 1e-4 / rtol 1e-3,
+    fp32 cache leaves atol 1e-5 / rtol 1e-4, bf16 leaves at most one bf16
+    ulp beyond that.  Decode launches K3 / K4 on the ssm family, K2 on
+    none."""
+    cfg = get_reduced_config(arch)
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    before = [fn.launches for fn in KERNELS]
+    got = lm.prefill(on_card, {"tokens": toks.to(cuda)})
+    want = lm.prefill(params, {"tokens": toks})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-4)
+    assert (flash_attention.launches > before[0]) == (cfg.family != "ssm")
+    cache = init_cache(cfg, 2, 12, device="cpu")
+    scan = mamba2_scan if cfg.ssm_kind == "mamba2" else rwkv6_scan
+    for t in range(8):
+        before = [fn.launches for fn in KERNELS]
+        tok = toks[:, t:t + 1]
+        got, card_cache = lm.decode_step(
+            on_card, tok.to(cuda), tree_map(lambda c: c.to(cuda), cache), t)
+        want, cache = lm.decode_step(params, tok, cache, t)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-3)
+        for k, c in cache.items():
+            a, b = card_cache[k].cpu().float(), c.float()
+            assert card_cache[k].dtype == c.dtype, k
+            tol = 1e-5 + 1e-4 * b.abs()
+            if c.dtype == torch.bfloat16:
+                tol = tol + torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+            assert ((a - b).abs() <= tol).all(), (arch, t, k)
+        assert flash_attention.launches == before[0]
+        if cfg.family == "ssm":
+            assert scan.launches > before[KERNELS.index(scan)]
 
 
 def test_preresnet20_on_the_card_matches_the_cpu(cuda):

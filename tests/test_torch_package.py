@@ -22,7 +22,8 @@ from repro_torch.fl.data import build_federated  # noqa: E402
 from repro_torch.fl.engine import SimConfig, build_context  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
 from repro_torch.configs.vit_t16 import reduced as vit_reduced  # noqa: E402
-from repro_torch.models import build, resnet, vit  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.models import build, init_cache, resnet, vit  # noqa: E402
 from repro_torch.testing.convert import (params_from_reference,  # noqa: E402
                                          params_to_reference)
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -33,7 +34,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 # (arch, the port's list of layers, a stacked leaf's path in the reference)
 TREES = [("qwen2-7b", "units", ("units", "sub_0", "attn", "wq")),
          ("mamba2-370m", "layers", ("layers", "in_proj")),
-         ("rwkv6-7b", "layers", ("layers", "w_lora_a"))]
+         ("rwkv6-7b", "layers", ("layers", "w_lora_a")),
+         ("qwen2-vl-2b", "units", ("units", "sub_0", "attn", "bq"))]
 
 
 @pytest.mark.parametrize("arch,key,leaf", TREES)
@@ -99,6 +101,11 @@ IMAGE_PATH = ("configs.preresnet20", "models.resnet", "core.mkd",
               "models.api", "core.memory_model", "core.blockwise",
               "fl.strategy", "fl.engine", "fl.strategies.fedepth",
               "fl.strategies.common")
+# the serving path's modules
+SERVING_PATH = ("configs.shapes", "configs.yi_6b", "configs.h2o_danube3_4b",
+                "configs.minicpm_2b", "configs.qwen2_vl_2b", "launch",
+                "launch.serve", "models.attention", "models.transformer",
+                "models.mamba2", "models.mamba2_lm", "models.rwkv6")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -110,7 +117,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
     assert len(names) >= 28
-    missing = [m for m in IMAGE_PATH if f"repro_torch.{m}" not in names]
+    missing = [m for m in IMAGE_PATH + SERVING_PATH
+               if f"repro_torch.{m}" not in names]
     assert not missing, missing
 
 
@@ -169,6 +177,16 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
             vit.init(0, vcfg, device="cpu")))
     assert vit.init(0, vcfg, device="cpu")["blocks"][0][
         "wqkv"].device.type == "cpu"
+    # serving: the decode cache and the serve driver
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 4)
+    assert all(t.device.type == "cpu"
+               for t in init_cache(cfg, 1, 4, device="cpu").values())
+    args = ["--arch", "qwen2-7b", "--reduced", "--batch", "1",
+            "--prompt-len", "2", "--gen", "1"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(args)
+    assert serve_main(args + ["--device", "cpu"]).tokens.device.type == "cpu"
 
 
 def test_cuda_device_turns_tf32_off(monkeypatch):
