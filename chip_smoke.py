@@ -16,20 +16,34 @@ Phases (each fails loudly; any failure exits non-zero):
    plain version's, one library call's as a yardstick (never used by the
    port; none computes either scan) and its bound at the peak of the
    units it runs on (K1 and K2: three TF32 products on the tensor cores;
-   the scans: fp32 outside them).  K1's per-row NLL at the qwen2 and
-   mamba2 heads, K2's output at the slice's shape, K3's at large steps and
-   K4's at a decay near 1 are also held against the plain version run in
-   float64: no farther than F64_RATIO x the fp32 plain version;
+   the scans: fp32 outside them).  K2's SDPA yardstick applies the
+   case's own mask (``is_causal`` where that is it, else an explicit
+   boolean mask) and must sit within SDPA_ATOL of the plain version.
+   K1's per-row NLL at the qwen2 and mamba2 heads, K2's output at the
+   slice's shape and at whisper's encoder, K3's at large steps and K4's
+   at a decay near 1 are also held against the plain version run in
+   float64: no farther than F64_RATIO x the fp32 plain version.  Timed
+   shapes beside the slice's: the serving prefills, whisper-small's
+   encoder (non-causal, 1500 frames) and cross-attention (Tq 256 and 1
+   against 1500), zamba2-1.2b's shared block, scan and head,
+   whisper-small's tied head, and K3 / K4 at a decode step (T = 1);
 4. paths: two FeDepth rounds (``RoundEngine`` over ``build_lm_context``)
    on each ported family at every published width, random weights from a
    seed: qwen2-7b (depth cut to 4 layers), mamba2-370m (all 48 layers,
-   tied head) and rwkv6-7b (depth cut to 4 layers); then two DepthFL
-   rounds of the same qwen2-7b with all 6 clients in each round (each
-   trains the prefix its budget fits, jointly: the r = 1 client all 4
-   layers, which the run requires).  Before each, a reduced model's loss
-   on the card is held against the CPU's.  The kernels' launch counts,
-   reset just before each run and read just after, must be above zero
-   for every kernel on that run's path;
+   tied head), rwkv6-7b (depth cut to 4 layers) and zamba2-1.2b (all 6
+   groups: K1, K2 and K3); two DepthFL rounds of the same qwen2-7b with
+   all 6 clients in each round (each trains the prefix its budget fits,
+   jointly: the r = 1 client all 4 layers, which the run requires); two
+   m-FeDepth rounds of mamba2-370m (``aux_norms``); FeDepth on
+   h2o-danube-3-4b, minicpm-2b and qwen2-vl-2b (as text), each cut to 4
+   layers; one client update of that qwen2-vl-2b with 256 stubbed vision
+   embeddings; and one FeDepth client update of whisper-small (all 24
+   units, r = 1/3's budget from ``lm_memory``, 4 x 1500 stubbed frames
+   and 4 x 256 tokens: K1 on the tied head, K2 non-causal, causal and
+   cross).  Before each, a reduced model's loss on the card is held
+   against the CPU's.  The kernels' launch counts, reset just before
+   each run and read just after, must be above zero for every kernel on
+   that run's path;
 5. the paper's own experiment: PreResNet-20 at its published widths on
    CIFAR-10's shape (synthetic 32 x 32 x 3 images, 10 classes, 50 000 /
    10 000), 100 clients over a balanced Dirichlet (alpha 1) split,
@@ -55,23 +69,30 @@ Phases (each fails loudly; any failure exits non-zero):
    final states held together; no kernel may launch;
 7. serving (``repro_torch.launch.serve``) of yi-6b, h2o-danube-3-4b,
    minicpm-2b, qwen2-vl-2b (256 stubbed vision embeddings, M-RoPE),
-   mamba2-370m and rwkv6-7b at every published width and depth, one after
-   another: a timed ``LM.prefill`` of 4 x 512 tokens (K2, K3 or K4) and
-   the serve loop at batch 4 (64-token prompts walked through the cache,
-   32 generated tokens; decode attention is plain, each ssm step runs K3
-   or K4 at T = 1 from the carried state), with ms a token, tok/s, peaks,
-   bounds, a profiled 8-step walk's idle share and the walk against the
-   prefill with bf16 and with fp32 cache leaves (logged).  Before each:
-   the reduced config's decode against its prefill on the card (atol
-   3e-2 / rtol 5e-2), and the model at every width cut to 2 layers,
-   prefill on the card against the CPU (relative 1e-4) and 8 decode steps
-   (logged).  K1 must not launch.
+   mamba2-370m, rwkv6-7b and zamba2-1.2b at every published width and
+   depth, one after another: a timed ``LM.prefill`` of 4 x 512 tokens
+   (K2, K3 or K4; zamba2 K2 and K3) and the serve loop at batch 4
+   (64-token prompts walked through the cache, 32 generated tokens;
+   decode attention is plain, each ssm or hybrid step runs K3 or K4 at
+   T = 1 from the carried state), with ms a token, tok/s, peaks, bounds,
+   a profiled 8-step walk's idle share and the walk against the prefill
+   with bf16 and with fp32 cache leaves (logged).  Before each: the
+   reduced config's decode against its prefill on the card (atol 3e-2 /
+   rtol 5e-2), and the model at every width cut to 2 layers (zamba2 to
+   one group), prefill on the card against the CPU (relative 1e-4) and 8
+   decode steps (logged).  Then whisper-small (``serve`` refuses an
+   encoder-decoder, as the reference's `serve` does): the same two
+   checks (2 + 2 layers), a timed prefill of 4 x 1500 frames and 4 x 64
+   tokens and a 32-step ``decode_step`` walk from the encoder's output
+   (K2 cross at Tq = 1 in every layer of every step).  K1 must not
+   launch.
 
 Prints the card's name and power limit, then one JSON line of kernel
-numbers (K1 also per head and K2 at the serving prefill shapes, under
-``heads``, each with the launches of its arch's runs, summed, and per run
-under ``runs``; every kernel's serving launches per run under
-``serving``), then ``{"ok": true, "device": ...}`` as the last line.
+numbers (every timed shape beside the first under ``heads``, each with
+the launches of its arch's runs (a decode row's: the serving decode
+only), summed, and per run under ``runs``; every kernel's serving
+launches per run under ``serving``), then ``{"ok": true, "device":
+...}`` as the last line.
 """
 from __future__ import annotations
 
@@ -96,6 +117,7 @@ PEAK_TF32 = ("tf32 495 TFLOP/s", 495e12)
 PEAK_BYTES_PER_S = 3.35e12
 
 ATTN_ATOL = 1e-4     # max abs error of K2 vs its plain version
+SDPA_ATOL = 1e-2     # the SDPA yardstick vs K2's plain version
 CE_RTOL = 1e-5       # relative error of K1's loss vs its plain version
 SCAN_ATOL = SCAN_RTOL = 1e-4   # K3 / K4 vs plain: |a - b| <= atol + rtol|b|
 F64_RATIO = 2.0      # K1 per row, K2, K3 at large dt, K4 at decay ~1:
@@ -142,21 +164,38 @@ def phase_build() -> None:
 
 
 # --------------------------------------------------------------- phase 3
-def _attn_pairs(Tq, Tk, causal, window, q_offset) -> int:
+def _attn_mask(Tq, Tk, causal, window, q_offset, device="cpu"):
+    """The (Tq, Tk) pairs the kernel attends (True = attend): causal and
+    sliding-window masks offset by ``q_offset``."""
     import torch
-    qp = torch.arange(Tq)[:, None] + q_offset
-    kp = torch.arange(Tk)[None, :]
-    mask = torch.ones(Tq, Tk, dtype=torch.bool)
+    qp = torch.arange(Tq, device=device)[:, None] + q_offset
+    kp = torch.arange(Tk, device=device)[None, :]
+    mask = torch.ones(Tq, Tk, dtype=torch.bool, device=device)
     if causal:
         mask &= kp <= qp
     if window:
         mask &= kp > qp - window
-    return int(mask.sum())
+    return mask
+
+
+def _sdpa_call(q, k, v, causal, window, q_offset):
+    """One ``F.scaled_dot_product_attention`` call computing the kernel's
+    function on (B, T, H, D) inputs: ``is_causal`` where that is the
+    kernel's mask (Tq = Tk, offset 0, no window cutting a pair), else the
+    kernel's mask as an explicit boolean ``attn_mask``."""
+    import torch.nn.functional as F
+    Tq, Tk = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if Tq == Tk and q_offset == 0 and (not window or window >= Tk):
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    mask = _attn_mask(Tq, Tk, causal, window, q_offset, q.device)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
 def check_attention(gen, case: dict, timed: bool):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, plain
     B, Tq, Tk, Hq, Hkv, D = (case[k] for k in
                              ("B", "Tq", "Tk", "Hq", "Hkv", "D"))
@@ -185,11 +224,16 @@ def check_attention(gen, case: dict, timed: bool):
     device_ms = time_ms(lambda: flash_attention(q, k, v, **opts), 20,
                         fill=True)
     plain_ms = time_ms(lambda: plain(q, k, v, **opts), 10)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    pairs = _attn_pairs(Tq, Tk, opts["causal"], opts["sliding_window"],
-                        opts["q_offset"])
+    sdpa = _sdpa_call(q, k, v, case["causal"], case["window"],
+                      case["q_offset"])
+    # the yardstick must compute the kernel's function: a wrong mask moves
+    # outputs by O(1), SDPA's own fp32 backends by far less than SDPA_ATOL
+    lib_err = float((sdpa().transpose(1, 2) - ref).abs().max())
+    if not lib_err <= SDPA_ATOL:
+        raise AssertionError(f"SDPA yardstick {case['name']}: {lib_err}")
+    lib_ms = time_ms(sdpa, 20)
+    pairs = int(_attn_mask(Tq, Tk, opts["causal"], opts["sliding_window"],
+                           opts["q_offset"]).sum())
     # the kernel's work: three TF32 products (small*big, big*small,
     # big*big) of 4*D flops per live (q, k) pair, on the tensor cores
     flops = 4.0 * D * pairs * B * Hq
@@ -197,7 +241,8 @@ def check_attention(gen, case: dict, timed: bool):
     bms, by, peak = bound_ms(3 * flops, nbytes, PEAK_TF32)
     fp32_bms = bound_ms(flops, nbytes)[0]
     log(f"    kernel {ms:.4f} ms (device {device_ms:.4f})  plain "
-        f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}, "
+        f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (max abs {lib_err:.1e} "
+        f"from plain)  bound {bms:.4f} ms ({by}, "
         f"{peak}; the products in fp32 outside the tensor cores: "
         f"{fp32_bms:.4f} ms)")
     return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
@@ -416,9 +461,10 @@ def check_rwkv6(gen, case: dict, timed: bool):
 
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  The first case of each
-    is the shape its path gives it, and is timed for the kernel line; K1
-    is also timed at the other paths' heads, each kept under ``heads``
-    with the path it serves."""
+    is the shape its path gives it, and is timed for the kernel line; the
+    other paths' shapes are timed too, each kept under ``heads`` with the
+    path it serves (and the run, ``stage``, where one run alone gives
+    it that shape)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = dict(B=4, Tq=256, Tk=256, Hq=28, Hkv=4, D=128, causal=True,
@@ -460,6 +506,21 @@ def phase_kernels() -> dict:
         dict(attn, name="qwen2-vl-2b prefill B4 T768 Hq12 Hkv2 D128 causal",
              Tq=768, Tk=768, Hq=12, Hkv=2, seed=8, timed=True,
              path="qwen2-vl-2b"),
+        # whisper-small's encoder (non-causal, 1500 frames), its decoder's
+        # cross-attention over them (Tq != Tk) in training and prefill and
+        # at decode (Tq = 1), and zamba2-1.2b's shared block
+        dict(attn, name="whisper-small encoder B4 Tq=Tk=1500 H12 D64 "
+             "non-causal", Tq=1500, Tk=1500, Hq=12, Hkv=12, D=64,
+             causal=False, seed=13, timed=True, path="whisper-small",
+             f64=True),
+        dict(attn, name="whisper-small cross B4 Tq256 Tk1500 H12 D64",
+             Tq=256, Tk=1500, Hq=12, Hkv=12, D=64, causal=False, seed=14,
+             timed=True, path="whisper-small"),
+        dict(attn, name="whisper-small cross at decode B4 Tq1 Tk1500 H12 D64",
+             Tq=1, Tk=1500, Hq=12, Hkv=12, D=64, causal=False, seed=15,
+             timed=True, path="whisper-small", stage="serve decode"),
+        dict(attn, name="zamba2-1.2b shared block B4 T256 H32 D64 causal",
+             Hq=32, Hkv=32, D=64, seed=16, timed=True, path="zamba2-1.2b"),
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
@@ -479,6 +540,11 @@ def phase_kernels() -> dict:
              D=203, V=1001, ignore_every=4),
         dict(name="tied head, unaligned D=203 V=1001 N=333", N=333, D=203,
              V=1001, ignore_every=4, tied=True),
+        dict(name="zamba2-1.2b head N1024 D2048 V32000", N=1024, D=2048,
+             V=32000, ignore_every=7, timed=True, path="zamba2-1.2b"),
+        dict(name="whisper-small tied head (embed.T) N1024 D768 V51865",
+             N=1024, D=768, V=51865, ignore_every=7, tied=True, timed=True,
+             path="whisper-small"),
     ]
     ssd = dict(B=4, T=256, H=32, P=64, N=128)
     ssd_cases = [
@@ -496,6 +562,12 @@ def phase_kernels() -> dict:
         # the serving prefill: mamba2-370m at 4 x 512 tokens
         dict(ssd, name="mamba2-370m prefill B4 T512 H32 P64 N128", T=512,
              seed=11, timed=True, path="mamba2-370m"),
+        # a decode step: one token from the carried state
+        dict(ssd, name="mamba2-370m decode B4 T1 H32 P64 N128", T=1,
+             s0=True, seed=17, timed=True, path="mamba2-370m",
+             stage="serve decode"),
+        dict(name="zamba2-1.2b B4 T256 H64 P64 N64", B=4, T=256, H=64, P=64,
+             N=64, seed=18, timed=True, path="zamba2-1.2b"),
     ]
     wkv = dict(B=4, T=256, H=64, D=64)
     wkv_cases = [
@@ -515,6 +587,8 @@ def phase_kernels() -> dict:
         # the serving prefill: rwkv6-7b at 4 x 512 tokens
         dict(wkv, name="rwkv6-7b prefill B4 T512 H64 D64", T=512, seed=12,
              timed=True, path="rwkv6-7b"),
+        dict(wkv, name="rwkv6-7b decode B4 T1 H64 D64", T=1, s0=True,
+             seed=19, timed=True, path="rwkv6-7b", stage="serve decode"),
     ]
     out = {}
     log("kernels vs plain PyTorch on the card:")
@@ -528,7 +602,8 @@ def phase_kernels() -> dict:
                  if "seed" in case else gen)
             rec = check(g, case, timed=i == 0 or case.get("timed", False))
             if rec is not None:
-                head = dict(path=case.get("path"), shape=case["name"], **rec)
+                head = dict(path=case.get("path"), stage=case.get("stage"),
+                            shape=case["name"], **rec)
                 out.setdefault(key, rec)
                 if head["path"]:
                     out[key].setdefault("heads", []).append(head)
@@ -547,22 +622,29 @@ def _launch_counters():
 
 
 def check_reduced_on_card(arch: str) -> None:
-    """The family's reduced model (4 layers): loss and its gradient norm
-    on the card through the kernels equal the CPU's through the plain
-    versions, from the same parameters and batch."""
+    """The family's reduced model (4 layers; zamba2's 2 groups, whisper's
+    2 + 2 layers over 64 frames): loss and its gradient norm on the card
+    through the kernels equal the CPU's through the plain versions, from
+    the same parameters and batch."""
     import torch
     from repro_torch.configs import get_reduced_config
     from repro_torch.models import build
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_reduced_config(arch), num_layers=4)
+    cfg = get_reduced_config(arch)
+    if cfg.family not in ("hybrid", "audio"):   # zamba2: 2 groups already
+        cfg = dataclasses.replace(cfg, num_layers=4)
     lm = build(cfg)
     params = lm.init(0, device="cpu")
     gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encoder_decoder:
+        batch["encoder_embeds"] = torch.randn(
+            2, cfg.max_source_positions, cfg.d_model, generator=gen)
     got = {}
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
-        b = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        b = {k: v.to(dev) for k, v in batch.items()}
         loss, _ = lm.loss_fn(p, b)
         grads = torch.autograd.grad(loss, tree_leaves(p))
         got[dev] = (loss.item(), float(torch.sqrt(sum(
@@ -670,9 +752,9 @@ def _check_run(name, loss, history, state, multi_block) -> None:
 
 def phase_path(arch: str, layers: int, kernels: tuple,
                method: str = "fedepth") -> dict:
-    """Two rounds of ``method`` (``fedepth`` or ``depthfl``) on ``arch``
-    at every published width with ``layers`` layers; returns this run's
-    launch counts."""
+    """Two rounds of ``method`` (``fedepth``, ``m-fedepth`` or
+    ``depthfl``) on ``arch`` at every published width with ``layers``
+    layers; returns this run's launch counts."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.decomposition import schedule_summary
@@ -699,7 +781,8 @@ def phase_path(arch: str, layers: int, kernels: tuple,
                           vocab_size=cfg.vocab_size, seq_len=256, seed=0)
     ctx = build_lm_context(data, sim, cfg)
     engine = RoundEngine(get_strategy(method), ctx)
-    if method == "fedepth":
+    blockwise = method != "depthfl"
+    if blockwise:
         for cid, dec in enumerate(ctx.decomps):
             log(f"client {cid} (r={ctx.ratios[cid]:.3f}): "
                 + schedule_summary(dec, ctx.mem).replace("\n", " |"))
@@ -710,7 +793,7 @@ def phase_path(arch: str, layers: int, kernels: tuple,
                                                 "labels": data.y_test[:4]})[0])
     log(f"test loss after 2 rounds: {loss:.4f}")
     for rd, ids in enumerate(cohorts):
-        if method == "fedepth":
+        if blockwise:
             work = (f"blocks per client "
                     f"{[len(ctx.decomps[k].blocks) for k in ids]}")
         else:
@@ -726,7 +809,10 @@ def phase_path(arch: str, layers: int, kernels: tuple,
     clients = [k for ids in cohorts for k in ids]
     _check_run(name, loss, history, state,
                any(len(ctx.decomps[k].blocks) >= 2 for k in clients)
-               if method == "fedepth" else None)
+               if blockwise else None)
+    if method == "m-fedepth" and not bool(
+            (state["aux_norms"][:-1] != 1).any()):
+        raise AssertionError(f"{name}: no intermediate aux norm trained")
     if method == "depthfl":
         depths = {engine.strategy.client_depth(ctx, k) for k in clients}
         if len(depths) < 2 or max(depths) < 2:
@@ -741,6 +827,159 @@ def phase_path(arch: str, layers: int, kernels: tuple,
     # collect it now, or its context (DepthFL's cached masks) outlives the
     # run into the next one's peak
     del state, engine, ctx, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _attention_modes(fn):
+    """``fn()`` with K2's calls through ``kernels.ops`` sorted by mode,
+    counting only the calls that launched the kernel: (its result,
+    {"causal" | "non-causal" (Tq = Tk) | "cross" (Tq != Tk): calls})."""
+    from repro_torch.kernels import ops
+    inner = ops.flash_attention
+    modes = {}
+
+    def recording(q, k, v, **kw):
+        before = inner.launches
+        out = inner(q, k, v, **kw)
+        if inner.launches > before:
+            mode = ("cross" if q.shape[1] != k.shape[1]
+                    else "causal" if kw["causal"] else "non-causal")
+            modes[mode] = modes.get(mode, 0) + 1
+        return out
+
+    ops.flash_attention = recording
+    try:
+        return fn(), modes
+    finally:
+        ops.flash_attention = inner
+
+
+def _lm_client_update(name: str, lm, params, dec, batches,
+                      kernels: tuple) -> dict:
+    """One FeDepth ``client_update`` of ``lm`` on the card (``lr`` 0.05,
+    momentum 0.9, the prefix cache on), its launch counts and K2's modes
+    read from that call alone; checks finite, moved parameters and the
+    ``kernels`` launched; returns the launches."""
+    import torch
+    from repro_torch.core import blockwise
+    from repro_torch.tree import tree_leaves
+    runner = blockwise.lm_runner(lm)
+    with torch.no_grad():
+        before = float(blockwise.full_model_loss(runner, params, batches[0]))
+    torch.cuda.reset_peak_memory_stats()
+    (out, modes), launches, secs = _counted(lambda: _attention_modes(
+        lambda: blockwise.client_update(runner, params, dec, batches,
+                                        lr=0.05, momentum=0.9)))
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        after = float(blockwise.full_model_loss(runner, out, batches[0]))
+    moved = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(out),
+                                                      tree_leaves(params)))
+    log(f"  {name}: blocks {dec.blocks}, {len(batches)} batches, "
+        f"{secs:.2f} s, peak {peak / 2**30:.2f} GiB, loss on batch 0 "
+        f"{before:.4f} -> {after:.4f}, {moved} leaves moved, launches "
+        f"{launches}, K2 calls by mode {modes}")
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(out))
+    missing = [k for k in kernels if launches[k] <= 0]
+    if not (finite and math.isfinite(after) and moved and not missing):
+        raise AssertionError(f"{name}: finite {finite}, loss {after}, "
+                             f"moved {moved}, kernels not launched "
+                             f"{missing}")
+    return launches, modes
+
+
+def phase_vlm_client(device="cuda") -> dict:
+    """qwen2-vl-2b (4 layers) with 256 stubbed vision embeddings before 4 x
+    256 tokens: one client update over blocks [0, 1), [1, 3), [3, 4)
+    (the VLM runner: no loss on the vision prefix; no M-RoPE positions
+    reach the units, as in the reference)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.decomposition import Decomposition
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b"), num_layers=4)
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(21)
+    batches = []
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (4, 257), generator=gen,
+                             device=device)
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                        "vision_embeds": _vlm_inputs(
+                            cfg, 4, 256, gen, device)["vision_embeds"]})
+    launches, _ = _lm_client_update(
+        "qwen2-vl-2b client update with a vision prefix", lm, params,
+        Decomposition(((0, 1), (1, 3), (3, 4)), 0, 0), batches,
+        ("chunked_cross_entropy", "flash_attention"))
+    del params, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+WHISPER_BATCH, WHISPER_TOKENS = 4, 256
+
+
+def _whisper_inputs(cfg, B: int, T: int, gen, device):
+    """B x T random tokens and B stubbed frame inputs (fp32)."""
+    import torch
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                                    device=device),
+            "encoder_embeds": torch.randn(B, cfg.max_source_positions,
+                                          cfg.d_model, generator=gen,
+                                          device=device)}
+
+
+def _whisper_batches(cfg, n: int, gen, device):
+    """``n`` training batches: 4 stubbed 1500-frame inputs (fp32) and 4 x
+    256 tokens."""
+    out = []
+    for _ in range(n):
+        b = _whisper_inputs(cfg, WHISPER_BATCH, WHISPER_TOKENS + 1, gen,
+                            device)
+        toks = b.pop("tokens")
+        out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:], **b})
+    return out
+
+
+def phase_whisper_client(device="cuda") -> dict:
+    """whisper-small at every published width and all 24 units (12
+    encoder, 12 decoder): one FeDepth client update under the ``fair``
+    scenario's budget for r = 1/3, priced by ``lm_memory`` at batch 4
+    and 256 tokens over 1500 frames, two batches.  K1 (the tied head) and
+    K2 must launch, K2 non-causal (encoder), causal (decoder) and cross
+    (Tq 256 against Tk 1500) all."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.decomposition import decompose, schedule_summary
+    from repro_torch.core.memory_model import lm_memory
+    from repro_torch.fl.engine import client_ratios, scenario_budgets
+    from repro_torch.models import build
+    cfg = get_config("whisper-small")
+    log(f"path {cfg.name} (fedepth client update): d_model {cfg.d_model} "
+        f"encoder {cfg.encoder_layers} + decoder {cfg.num_layers} layers "
+        f"(all), {cfg.max_source_positions} frames, vocab {cfg.vocab_size} "
+        f"tied head, {cfg.param_count() / 1e9:.3f} B params")
+    check_reduced_on_card(cfg.name)
+    lm = build(cfg)
+    mem = lm_memory(cfg, WHISPER_BATCH, WHISPER_TOKENS)
+    ratios = client_ratios(6, "fair", 0)
+    k = int(np.argmin(np.abs(ratios - 1 / 3)))
+    dec = decompose(mem, int(scenario_budgets(mem, ratios)[k]))
+    log(f"  r = {ratios[k]:.3f}: "
+        + schedule_summary(dec, mem).replace("\n", " |"))
+    params = lm.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(22)
+    launches, modes = _lm_client_update(
+        "whisper-small client update", lm, params, dec,
+        _whisper_batches(cfg, 2, gen, device),
+        ("chunked_cross_entropy", "flash_attention"))
+    if set(modes) != {"causal", "non-causal", "cross"}:
+        raise AssertionError(f"whisper-small: K2 modes {modes}")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1297,14 +1536,16 @@ def phase_vit() -> None:
 
 # --------------------------------------------------------------- phase 7
 SERVE_RUNS = (
-    # (arch, the kernel its prefill must launch, the kernel its decode
-    # steps must launch: the dense and vlm decode attention is plain)
-    ("yi-6b", "flash_attention", None),
-    ("h2o-danube-3-4b", "flash_attention", None),
-    ("minicpm-2b", "flash_attention", None),
-    ("qwen2-vl-2b", "flash_attention", None),
-    ("mamba2-370m", "mamba2_scan", "mamba2_scan"),
-    ("rwkv6-7b", "rwkv6_scan", "rwkv6_scan"),
+    # (arch, the kernels its prefill must launch, the kernel its decode
+    # steps must launch: the dense, vlm and hybrid decode attention is
+    # plain)
+    ("yi-6b", ("flash_attention",), None),
+    ("h2o-danube-3-4b", ("flash_attention",), None),
+    ("minicpm-2b", ("flash_attention",), None),
+    ("qwen2-vl-2b", ("flash_attention",), None),
+    ("mamba2-370m", ("mamba2_scan",), "mamba2_scan"),
+    ("rwkv6-7b", ("rwkv6_scan",), "rwkv6_scan"),
+    ("zamba2-1.2b", ("flash_attention", "mamba2_scan"), "mamba2_scan"),
 )
 SERVE_BATCH = 4
 PREFILL_TOKENS = 512         # the timed prefill: batch 4 x 512 tokens
@@ -1370,9 +1611,19 @@ def check_serving_reduced(arch: str, device="cuda") -> None:
         raise AssertionError(f"{arch} reduced: decode and prefill disagree")
 
 
+def _two_layers(cfg):
+    """``cfg`` cut to 2 layers: zamba2 to one group (its 5 mamba layers
+    and the shared block), whisper to 2 encoder + 2 decoder layers."""
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, num_layers=cfg.hybrid_attn_every)
+    if cfg.is_encoder_decoder:
+        return dataclasses.replace(cfg, num_layers=2, encoder_layers=2)
+    return dataclasses.replace(cfg, num_layers=2)
+
+
 def check_serving_two_layers(arch: str, device="cuda") -> None:
-    """Every published width, depth cut to 2: prefill logits on the card
-    against the CPU (relative 1e-4: the largest difference over the
+    """Every published width, depth cut to 2 (:func:`_two_layers`):
+    prefill logits on the card against the CPU (relative 1e-4: the largest difference over the
     largest logit; a VLM with its vision prefix and M-RoPE positions),
     and 8 decode steps of one prompt on each, each carrying its own
     cache (the distance is logged: a bf16 cache entry on a rounding
@@ -1381,7 +1632,7 @@ def check_serving_two_layers(arch: str, device="cuda") -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.tree import tree_map
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    cfg = _two_layers(get_config(arch))
     lm = build(cfg)
     on_card = lm.init(0, device=device)
     params = tree_map(lambda t: t.cpu(), on_card)
@@ -1395,7 +1646,7 @@ def check_serving_two_layers(arch: str, device="cuda") -> None:
     walks = [_walk(lm, p, toks[:, :8].to(d)) for p, d in
              ((on_card, device), (params, "cpu"))]
     dec = max(_rel(a.cpu(), b) for a, b in zip(*walks))
-    log(f"  {arch} at every width, 2 layers: prefill{' (vision prefix, '
+    log(f"  {arch} at every width, {cfg.num_layers} layers: prefill{' (vision prefix, '
         'M-RoPE)' if cfg.family == 'vlm' else ''} card vs cpu rel err "
         f"{rel:.3e} (tol {LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}; 8 decode "
         f"steps card vs cpu, largest rel err {dec:.3e} (logged)")
@@ -1435,7 +1686,9 @@ def _bounds(cfg, params, B: int, T: int, P: int, gen: int):
     head = cfg.d_model * cfg.vocab_size
     touched = n if cfg.tie_embeddings else n - head   # drop an untied embed
     t_all = T + (cfg.frontend_embed_tokens if cfg.family == "vlm" else 0)
-    per_pair = 4.0 * cfg.head_dim * cfg.num_heads * cfg.num_layers * B
+    n_attn = (cfg.num_layers // cfg.hybrid_attn_every
+              if cfg.family == "hybrid" else cfg.num_layers)
+    per_pair = 4.0 * cfg.head_dim * cfg.num_heads * n_attn * B
     window = cfg.sliding_window or t_all
     pairs = sum(min(i + 1, window) for i in range(t_all))
     pf = bound_ms(2.0 * B * t_all * (touched - head) + 2.0 * B * head
@@ -1456,14 +1709,14 @@ def _bounds(cfg, params, B: int, T: int, P: int, gen: int):
     return pf, dec
 
 
-def phase_serve_model(arch: str, prefill_kernel: str, decode_kernel,
+def phase_serve_model(arch: str, prefill_kernels: tuple, decode_kernel,
                       device="cuda") -> dict:
     """Serve ``arch`` at every published width and depth on the card:
     seeded init, one timed ``LM.prefill`` of 4 x 512 tokens (a VLM's
     256 vision embeddings and M-RoPE positions too) after an untimed
     one, then ``launch.serve.serve`` at batch 4 (64-token prompts, 32
-    generated tokens).  Checks the launches (K1 none; ``prefill_kernel``
-    on the prefill; ``decode_kernel`` on the decode steps, K2 on none)
+    generated tokens).  Checks the launches (K1 none; each of
+    ``prefill_kernels`` on the prefill; ``decode_kernel`` on the decode steps, K2 on none)
     and finite logits; logs the decode walk against a prefill of the same
     prompts.  Returns the prefill's and the serve loop's launches."""
     import torch
@@ -1536,8 +1789,8 @@ def phase_serve_model(arch: str, prefill_kernel: str, decode_kernel,
     bad = []
     if pf_launch["chunked_cross_entropy"] or dec_launch["chunked_cross_entropy"]:
         bad.append("K1 launched")
-    if pf_launch[prefill_kernel] <= 0:
-        bad.append(f"prefill launched no {prefill_kernel}")
+    bad += [f"prefill launched no {k}" for k in prefill_kernels
+            if pf_launch[k] <= 0]
     if dec_launch["flash_attention"]:
         bad.append("decode launched flash_attention")
     if decode_kernel and dec_launch[decode_kernel] <= 0:
@@ -1550,18 +1803,203 @@ def phase_serve_model(arch: str, prefill_kernel: str, decode_kernel,
     return {"prefill": pf_launch, "decode": dec_launch}
 
 
+WHISPER_PROMPT, WHISPER_STEPS = 64, 32   # prefill tokens; decode steps
+
+
+def _whisper_walk(lm, params, frames, toks):
+    """``enc_out`` of ``frames`` into a fresh cache (bf16, its spec's
+    dtype), then ``toks`` (B, T) fed one at a time through
+    ``decode_step``; the logits after each."""
+    import torch
+    from repro_torch.models import init_cache, whisper
+    cache = init_cache(lm.cfg, toks.shape[0], toks.shape[1],
+                       device=toks.device)
+    with torch.inference_mode():
+        cache["enc_out"] = whisper.encode(params, lm.cfg, frames).to(
+            cache["enc_out"].dtype)
+    out = []
+    for t in range(toks.shape[1]):
+        logits, cache = lm.decode_step(params, toks[:, t:t + 1], cache, t)
+        out.append(logits)
+    return out
+
+
+def _whisper_bounds(cfg, B: int, T: int, steps: int):
+    """Least times of a prefill (B x S frames, B x T tokens) and of one
+    decode step at batch B, as ``bound_ms`` tuples at fp32 67 TFLOP/s and
+    3.35 TB/s: 2 flops a weight a token (the encoder's weights over the
+    frames, the decoder's over the tokens, the tied head over the B last
+    ones), attention's 4 D flops a live (q, k) pair (encoder S x S,
+    decoder causal, cross T x S); the parameters read once.  A step
+    multiplies the decoder's weights by B tokens and, as the reference
+    does, recomputes every layer's cross K / V from ``enc_out`` (4 D^2
+    flops a frame a layer); it reads the bf16 ``enc_out`` and the K / V
+    written so far (the mean over the steps)."""
+    D, S, V = cfg.d_model, cfg.max_source_positions, cfg.vocab_size
+    attn_p = 4 * D * D
+    enc_p = attn_p + 2 * D * cfg.d_ff
+    dec_p = 2 * attn_p + 2 * D * cfg.d_ff
+    params = (cfg.encoder_layers * enc_p + cfg.num_layers * dec_p + V * D
+              + (cfg.max_seq_len + S) * D)
+    enc_fl = cfg.encoder_layers * B * (2.0 * enc_p * S + 4.0 * D * S * S)
+    dec_fl = cfg.num_layers * B * (2.0 * dec_p * T + 4.0 * D * (
+        T * (T + 1) / 2 + T * S))
+    pf = bound_ms(enc_fl + dec_fl + 2.0 * B * D * V,
+                  4.0 * (params + B * S * D) + 4.0 * B * V)
+    kv = cfg.num_layers * 2 * B * D * 2 * (steps + 1) / 2
+    step_fl = cfg.num_layers * B * (2.0 * dec_p + 4.0 * D * S
+                                    + 4.0 * D * S * D) + 2.0 * B * D * V
+    step = bound_ms(step_fl, 4.0 * (cfg.num_layers * dec_p + V * D)
+                    + 2.0 * B * S * D + kv)
+    return pf, step
+
+
+def check_whisper_serving_small(device="cuda") -> None:
+    """The reduced whisper on the card: the decode walk (``enc_out`` in
+    bf16) against ``prefill`` within atol 3e-2 / rtol 5e-2; at every
+    published width cut to 2 + 2 layers, the prefill on the card against
+    the CPU (relative 1e-4) and 8 decode steps (logged)."""
+    import torch
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.models import build
+    from repro_torch.tree import tree_map
+    cfg = get_reduced_config("whisper-small")
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    batch = _whisper_inputs(cfg, 2, 10, gen, device)
+    dec = _whisper_walk(lm, params, batch["encoder_embeds"],
+                        batch["tokens"])[-1]
+    pf = lm.prefill(params, batch)
+    err = float((dec - pf).abs().max())
+    ok = bool(((dec - pf).abs() <= DECODE_ATOL + DECODE_RTOL * pf.abs()).all())
+    log(f"  whisper-small reduced on the card: decode vs prefill max_abs_err "
+        f"{err:.3e} (atol {DECODE_ATOL:g} rtol {DECODE_RTOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("whisper reduced: decode and prefill disagree")
+    cfg = _two_layers(get_config("whisper-small"))
+    lm = build(cfg)
+    on_card = lm.init(0, device=device)
+    params = tree_map(lambda t: t.cpu(), on_card)
+    gen = torch.Generator().manual_seed(3)
+    batch = _whisper_inputs(cfg, 2, 32, gen, "cpu")
+    got = lm.prefill(on_card, {k: v.to(device) for k, v in batch.items()})
+    rel = _rel(got.cpu(), lm.prefill(params, batch))
+    ok = math.isfinite(rel) and rel <= LOSS_RTOL
+    walks = [_whisper_walk(lm, p, batch["encoder_embeds"].to(d),
+                           batch["tokens"][:, :8].to(d))
+             for p, d in ((on_card, device), (params, "cpu"))]
+    dec = max(_rel(a.cpu(), b) for a, b in zip(*walks))
+    log(f"  whisper-small at every width, 2 + 2 layers: prefill card vs cpu "
+        f"rel err {rel:.3e} (tol {LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}; 8 "
+        f"decode steps card vs cpu, largest rel err {dec:.3e} (logged)")
+    if not ok:
+        raise AssertionError(f"whisper: prefill on the card and the CPU "
+                             f"disagree ({rel})")
+
+
+def phase_serve_whisper(device="cuda") -> dict:
+    """whisper-small at every published width and depth: a timed prefill
+    of 4 x 1500 frames and 4 x 64 tokens (K2 non-causal, causal and
+    cross), then a 32-step ``decode_step`` walk from the encoder's output
+    (K2 cross at Tq = 1 in every layer at every step; self-attention at
+    decode is plain), each after its reduced and 2 + 2-layer checks.
+    ``serve`` refuses an encoder-decoder, as the reference's `serve` does,
+    so the walk is driven directly.  Returns the prefill's and the walk's
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.tree import tree_bytes
+    check_whisper_serving_small(device)
+    cfg = get_config("whisper-small")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    B, T, G = SERVE_BATCH, WHISPER_PROMPT, WHISPER_STEPS
+    batch = _whisper_inputs(cfg, B, T, gen, device)
+    first_s = _counted(lambda: lm.prefill(params, batch))[2]
+    (logits, modes), pf_launch, pf_s = _counted(
+        lambda: _attention_modes(lambda: lm.prefill(params, batch)))
+    pf_peak = torch.cuda.max_memory_allocated()
+    toks = batch["tokens"][:, :G]
+    walk, dec_launch, walk_s = _counted(
+        lambda: _whisper_walk(lm, params, batch["encoder_embeds"], toks))
+    peak = torch.cuda.max_memory_allocated()
+    _, wall, busy, n_ops = device_busy(
+        lambda: _whisper_walk(lm, params, batch["encoder_embeds"],
+                              toks[:, :8]))
+    pf_walk = lm.prefill(params, {"tokens": toks,
+                                  "encoder_embeds": batch["encoder_embeds"]})
+    dist = float((walk[-1] - pf_walk).abs().max())
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (logits, walk[-1]))
+    (pf_b, pf_by, _), (st_b, st_by, _) = _whisper_bounds(cfg, B, T, G)
+    step_ms = walk_s / G * 1e3     # the encoder's one pass included
+    log(f"serve {cfg.name}: d_model {cfg.d_model} encoder "
+        f"{cfg.encoder_layers} + decoder {cfg.num_layers} layers (all), "
+        f"{cfg.max_source_positions} frames, vocab {cfg.vocab_size} tied, "
+        f"{cfg.param_count() / 1e9:.3f} B params, "
+        f"{tree_bytes(params) / 1e9:.2f} GB fp32")
+    log(f"  prefill {B} x ({cfg.max_source_positions} frames + {T} tokens): "
+        f"{pf_s:.4f} s (first call {first_s:.4f} s), bound "
+        f"{pf_b / 1e3:.4f} s ({pf_by}), peak {pf_peak / 2**30:.2f} GiB, "
+        f"launches {pf_launch}, K2 calls by mode {modes}")
+    log(f"  decode walk {B} x {G} steps (the encoder once, then cross K / V "
+        f"recomputed every step): {walk_s:.3f} s, {step_ms:.3f} ms a step "
+        f"(the encoder's pass spread over the steps), "
+        f"step bound {st_b:.3f} ms ({st_by}), peak {peak / 2**30:.2f} GiB, "
+        f"launches {dec_launch}")
+    log(f"  profiled 8-step walk: {wall:.3f} s, device busy {busy:.4f} s "
+        f"over {n_ops} device operations, idle share {1 - busy / wall:.4f}")
+    log(f"  decode walk vs prefill of the same {G} tokens: max_abs_err "
+        f"{dist:.3e} (logged; largest |logit| "
+        f"{float(pf_walk.abs().max()):.3e}); finite {finite}")
+    bad = []
+    if not finite:
+        bad.append("non-finite logits")
+    if pf_launch["chunked_cross_entropy"] or dec_launch[
+            "chunked_cross_entropy"]:
+        bad.append("K1 launched")
+    if set(modes) != {"causal", "non-causal", "cross"}:
+        bad.append(f"prefill K2 modes {modes}")
+    # the encoder's 12 non-causal calls, then one cross call a layer a step
+    want = cfg.encoder_layers + G * cfg.num_layers
+    if dec_launch["flash_attention"] != want:
+        bad.append(f"decode walk launched K2 {dec_launch['flash_attention']} "
+                   f"times, not {want}")
+    if bad:
+        raise AssertionError(f"serve {cfg.name}: {bad}")
+    del params, logits, walk, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill": pf_launch, "decode": dec_launch}
+
+
 def phase_serving() -> dict:
     log("serving: every published width and depth, batch 4")
-    return {arch: phase_serve_model(arch, pk, dk)
+    runs = {arch: phase_serve_model(arch, pk, dk)
             for arch, pk, dk in SERVE_RUNS}
+    runs["whisper-small"] = phase_serve_whisper()
+    return runs
 
 
+K1_K2 = ("chunked_cross_entropy", "flash_attention")
 PATHS = (
     # (arch, layers, kernels that must launch on the path, method)
-    ("qwen2-7b", 4, ("chunked_cross_entropy", "flash_attention"), "fedepth"),
+    ("qwen2-7b", 4, K1_K2, "fedepth"),
     ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan"), "fedepth"),
     ("rwkv6-7b", 4, ("chunked_cross_entropy", "rwkv6_scan"), "fedepth"),
-    ("qwen2-7b", 4, ("chunked_cross_entropy", "flash_attention"), "depthfl"),
+    ("qwen2-7b", 4, K1_K2, "depthfl"),
+    ("zamba2-1.2b", 38, K1_K2 + ("mamba2_scan",), "fedepth"),
+    ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan"),
+     "m-fedepth"),
+    ("h2o-danube-3-4b", 4, K1_K2, "fedepth"),
+    ("minicpm-2b", 4, K1_K2, "fedepth"),
+    ("qwen2-vl-2b", 4, K1_K2, "fedepth"),
 )
 
 
@@ -1596,7 +2034,12 @@ def main() -> int:
     by_run = {}
     for arch, layers, path_kernels, method in PATHS:
         by_run[arch, method] = phase_path(arch, layers, path_kernels, method)
-        for name, n in by_run[arch, method].items():
+    by_run["qwen2-vl-2b", "client update, vision prefix"] = \
+        phase_vlm_client()
+    by_run["whisper-small", "fedepth client update"] = \
+        phase_whisper_client()
+    for run in by_run.values():
+        for name, n in run.items():
             launches[name] += n
     phase_images()
     phase_vit()
@@ -1606,13 +2049,15 @@ def main() -> int:
             for name, n in run.items():
                 launches[name] += n
     # launches: the sum over the runs, each read from its own run; the
-    # serving runs' also apart; each kernel's heads (K1 per LM head, K2 at
-    # the serving prefill shapes) with the launches of their arch's runs
+    # serving runs' also apart; each kernel's heads (its other timed
+    # shapes) with the launches of their arch's runs (a row with a
+    # ``stage``: that run's alone)
     for name, rec in numbers.items():
         for head in rec.get("heads", []):
             head["runs"] = {method: run[name]
                             for (arch, method), run in by_run.items()
-                            if arch == head["path"]}
+                            if arch == head["path"]
+                            and head["stage"] in (None, method)}
             head["launches"] = sum(head["runs"].values())
         rec["serving"] = {f"{arch} {method[len('serve '):]}": run[name]
                           for (arch, method), run in by_run.items()

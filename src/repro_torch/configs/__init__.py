@@ -1,18 +1,21 @@
 """Architecture config registry — the architectures ported so far.
 
 ``get_config(arch_id)`` returns the full published config;
-``get_reduced_config(arch_id)`` the small one the CPU tests use (2 layers,
-d_model 128 or 144), both identical to the reference's.  Ported: the dense
+``get_reduced_config(arch_id)`` the small one the CPU tests use (2 to 4
+layers, d_model 128 or 144), both identical to the reference's.  Ported: the dense
 ``qwen2-7b``, ``yi-6b``, ``h2o-danube-3-4b`` (sliding window) and
 ``minicpm-2b`` (tied head), the VLM backbone ``qwen2-vl-2b`` (M-RoPE, a
-stubbed vision prefix) and the attention-free ``mamba2-370m`` and
-``rwkv6-7b``.  The reference's other architectures (``NOT_PORTED``) raise
-``NotImplementedError``.
+stubbed vision prefix), the attention-free ``mamba2-370m`` and
+``rwkv6-7b``, the hybrid ``zamba2-1.2b`` (mamba2 layers and one shared
+attention block) and the encoder-decoder ``whisper-small`` (a stubbed
+audio frontend).  The reference's MoE architectures (``NOT_PORTED``)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (h2o_danube3_4b, mamba2_370m, minicpm_2b,
-                                 qwen2_7b, qwen2_vl_2b, rwkv6_7b, yi_6b)
+                                 qwen2_7b, qwen2_vl_2b, rwkv6_7b,
+                                 whisper_small, yi_6b, zamba2_1_2b)
 from repro_torch.configs.base import (SHAPE_BY_NAME, SHAPES, InputShape,
                                       ModelConfig)
 
@@ -24,13 +27,14 @@ _MODULES = {
     "qwen2-vl-2b": qwen2_vl_2b,
     "qwen2-7b": qwen2_7b,
     "h2o-danube-3-4b": h2o_danube3_4b,
+    "zamba2-1.2b": zamba2_1_2b,
+    "whisper-small": whisper_small,
 }
 
 ARCH_IDS = tuple(_MODULES)
 
 # the reference's architectures that wait for a later slice
-NOT_PORTED = ("whisper-small", "qwen3-moe-235b-a22b", "zamba2-1.2b",
-              "llama4-maverick-400b-a17b")
+NOT_PORTED = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -21,9 +21,11 @@ Two head strategies (paper §Methodology), on the ResNet runner:
 the shared classifier) and ``head="aux"`` (m-FeDepth: a tiny auxiliary
 classifier per block exit; the final block trains the real head).  The
 ViT runner (paper Fig. 7) takes ``"skip"``: the CLS token into the
-shared head.  The LM runner covers the dense and the attention-free
-(``ssm``: mamba2, rwkv6) families with ``head="skip"``.  The whisper /
-hybrid runners and m-FeDepth on LMs wait for later slices.
+shared head.  The LM runner covers every ported family (dense, vlm,
+ssm, hybrid, and whisper through :func:`_whisper_runner`, whose z is an
+``{"enc", "dec"}`` pair) with ``"skip"`` and, except whisper, ``"aux"``
+(m-FeDepth: per-block rms-norm scales ``aux_norms`` into the shared
+head).
 
 Stacked execution (the substrate of ``fl.sampling.VectorizedScheduler``):
 :func:`client_update_batched` runs a group of clients that share one
@@ -60,8 +62,9 @@ class BlockRunner:
     merge: Callable[..., Any]
     # True when the params feeding ``embed`` and the prefix never change
     # while later subproblems train, so a buffered z_{lo-1} can be
-    # advanced incrementally (False for tied embeddings: the head trains
-    # the embedding table, so the prefix is re-buffered per subproblem)
+    # advanced incrementally (False where head-trained keys reach the
+    # prefix: tied embeddings, zamba2's shared block, whisper's enc_norm;
+    # the prefix is then re-buffered per subproblem)
     prefix_stable: bool = True
     # model family ("resnet", "vit" or the LM config's family); the
     # stacked path refuses the LM families (:func:`make_group_update`)
@@ -69,25 +72,39 @@ class BlockRunner:
 
 
 def lm_runner(lm, head: str = "skip") -> BlockRunner:
-    """Runner over a dense-transformer or ``ssm`` ``LM``
-    (``repro_torch.models``).  The depth units live under
-    ``params["units"]`` (dense) or ``params["layers"]`` (ssm)."""
+    """Runner over an ``LM`` (``repro_torch.models``) of any ported
+    family.  The depth units live under ``params["units"]`` (dense, vlm),
+    ``params["layers"]`` (ssm) or ``params["mamba_groups"]`` (hybrid: one
+    unit a group); whisper takes :func:`_whisper_runner`.
+
+    ``head="aux"`` (m-FeDepth) normalises a block's exit with
+    ``params["aux_norms"][block_idx]`` (one rms-norm scale per unit, from
+    ``FedepthStrategy.init_state``) into the shared head, for every
+    block but the last, which trains the real ``final_norm``.  A VLM
+    batch's ``vision_embeds`` prefix the token embeddings and take no
+    loss; as in the reference, ``apply_units`` passes no M-RoPE
+    positions, so FeDepth runs 1-D RoPE over [vision; text]."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
 
     cfg = lm.cfg
-    if head != "skip":
-        raise NotImplementedError("head='aux' (m-FeDepth) is not ported yet")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.is_encoder_decoder:
+        return _whisper_runner(lm)
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.family!r} runner is not ported yet")
-    layers_key = "units" if cfg.family == "dense" else "layers"
-    head_keys = {"final_norm", "lm_head"}
+    layers_key = {"dense": "units", "vlm": "units", "ssm": "layers",
+                  "hybrid": "mamba_groups"}[cfg.family]
+    head_keys = {"final_norm", "lm_head", "aux_norms"}
+    if cfg.family == "hybrid":
+        head_keys |= {"shared", "invocation_norms"}
     if cfg.tie_embeddings:
         head_keys |= {"embed"}
 
     def embed(params, batch):
-        if cfg.family == "dense":
-            return transformer.embed_inputs(params, cfg, batch["tokens"])
+        if cfg.family in ("dense", "vlm"):
+            return transformer.embed_inputs(
+                params, cfg, batch["tokens"],
+                vision_embeds=batch.get("vision_embeds"))
         return params["embed"][batch["tokens"]]
 
     def apply_units(params, z, lo, hi):
@@ -95,7 +112,15 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
         return out
 
     def head_loss(params, z, batch, block_idx):
-        x = common.rms_norm(z, params["final_norm"], cfg.norm_eps)
+        if (head == "aux" and "aux_norms" in params
+                and block_idx < lm.num_depth_units - 1):
+            norm_w = params["aux_norms"][block_idx]
+        else:
+            norm_w = params["final_norm"]
+        x = common.rms_norm(z, norm_w, cfg.norm_eps)
+        if batch.get("vision_embeds") is not None:
+            # K1 reads the hidden states as one contiguous block
+            x = x[:, batch["vision_embeds"].shape[1]:].contiguous()
         ce, _ = ops.cross_entropy(x, common.head_weight(params, cfg),
                                   batch["labels"])
         return ce
@@ -116,9 +141,77 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
                 out[k] = v
         return out
 
+    # a tied head trains the embedding table, and the hybrid family's
+    # shared block (trained with the head) runs inside every group: both
+    # reach the prefix forward, so buffers are re-buffered per subproblem
+    stable = not cfg.tie_embeddings and cfg.family != "hybrid"
     return BlockRunner(lm.num_depth_units, embed, apply_units, head_loss,
-                       split, merge, prefix_stable=not cfg.tie_embeddings,
+                       split, merge, prefix_stable=stable,
                        family=cfg.family)
+
+
+def _whisper_runner(lm) -> BlockRunner:
+    """Whisper: the units are the encoder layers, then the decoder
+    layers; z is the ``{"enc", "dec"}`` pair (frames, tokens), so the
+    encoder output is a buffered activation for the decoder blocks; the
+    head is ``dec_norm`` and the tied embedding.  ``enc_norm`` (applied
+    where the encoder ends) trains with the head, the positions with
+    block 0, and the runner reports ``prefix_stable=False``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import whisper
+
+    cfg = lm.cfg
+    E = cfg.encoder_layers
+    head_keys = ("dec_norm", "embed", "enc_norm")
+
+    def ranges(lo, hi):
+        return (min(lo, E), min(hi, E)), (max(lo - E, 0), max(hi - E, 0))
+
+    def embed(params, batch):
+        return {"enc": whisper.embed_frames(params, batch["encoder_embeds"]),
+                "dec": whisper.embed_tokens(params, batch["tokens"])}
+
+    def apply_units(params, z, lo, hi):
+        enc, dec = z["enc"], z["dec"]
+        (e_lo, e_hi), (d_lo, d_hi) = ranges(lo, hi)
+        if e_hi > e_lo:
+            enc = whisper.encoder_range(params, cfg, enc, e_lo, e_hi)
+        if d_hi > d_lo:
+            dec = whisper.apply_decoder_range(params, cfg, dec, enc, d_lo,
+                                              d_hi)
+        return {"enc": enc, "dec": dec}
+
+    def head_loss(params, z, batch, block_idx):
+        x = whisper.ln(z["dec"], params["dec_norm"], cfg.norm_eps)
+        ce, _ = ops.cross_entropy(x, params["embed"].T, batch["labels"])
+        return ce
+
+    def split(params, lo, hi):
+        train = {k: params[k] for k in head_keys}
+        (e_lo, e_hi), (d_lo, d_hi) = ranges(lo, hi)
+        if e_hi > e_lo:
+            train["enc_layers"] = params["enc_layers"][e_lo:e_hi]
+        if d_hi > d_lo:
+            train["dec_layers"] = params["dec_layers"][d_lo:d_hi]
+        if lo == 0:
+            train["pos_enc"] = params["pos_enc"]
+            train["pos_dec"] = params["pos_dec"]
+        return train
+
+    def merge(params, train, lo: int = None, hi: int = None):
+        out = dict(params)
+        (e_lo, e_hi), (d_lo, d_hi) = ranges(lo, hi)
+        for k, v in train.items():
+            if k == "enc_layers":
+                out[k] = params[k][:e_lo] + list(v) + params[k][e_hi:]
+            elif k == "dec_layers":
+                out[k] = params[k][:d_lo] + list(v) + params[k][d_hi:]
+            else:
+                out[k] = v
+        return out
+
+    return BlockRunner(E + cfg.num_layers, embed, apply_units, head_loss,
+                       split, merge, prefix_stable=False, family="whisper")
 
 
 # ---- ResNet adapter -------------------------------------------------------
@@ -217,7 +310,8 @@ def block_loss_fn(runner: BlockRunner, params_full, train_params, z_in,
     from ``params_full``, detached."""
     frozen = tree_map(torch.Tensor.detach, params_full)
     merged = runner.merge(frozen, train_params, lo=lo, hi=hi)
-    z = runner.apply_units(merged, z_in.detach(), lo, hi)
+    z = runner.apply_units(merged, tree_map(torch.Tensor.detach, z_in), lo,
+                           hi)
     return runner.head_loss(merged, z, batch, hi - 1)
 
 
@@ -359,9 +453,12 @@ class PrefixCache:
         return self.zs
 
     def buffered_bytes(self) -> int:
+        """Bytes held by the buffers, every leaf of a dict z (whisper's
+        ``{"enc", "dec"}``) counted."""
         if self.zs is None:
             return 0
-        return sum(z.numel() * z.element_size() for z in self.zs)
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self.zs))
 
 
 def client_update(runner: BlockRunner, params, dec: Decomposition, batches,
@@ -423,7 +520,7 @@ def full_model_loss(runner: BlockRunner, params, batch):
 # --------------------------------------------------------------------------
 # families whose runners call the port's kernels (K1–K4): their autograd
 # Functions have no vmap rules yet (ROADMAP.md, queue 1, item 12)
-_KERNEL_FAMILIES = ("dense", "ssm")
+_KERNEL_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "whisper")
 
 
 def broadcast_tree(tree, group: int):

@@ -5,8 +5,8 @@ Composes: memory model -> per-client decomposition (precomputed in the
 engine context) -> depth-wise sequential ClientUpdate -> plain FedAvg.
 Variants:
   * ``head="skip"``  -> FeDepth   (skip-connection classifier)
-  * ``head="aux"``   -> m-FeDepth (auxiliary classifiers; ResNet only —
-    m-FeDepth on LMs is not ported yet)
+  * ``head="aux"``   -> m-FeDepth (auxiliary classifiers on the ResNet;
+    per-block rms-norm scales ``aux_norms`` into the shared head on LMs)
   * a ``ViTConfig``  -> paper Fig. 7's depth-wise ViT fine-tune
   * surplus clients (M > 1)       -> MKD local update (core.mkd)
   * clients below the finest block -> partial training (skip prefix)
@@ -64,10 +64,16 @@ class FedepthStrategy:
 
     def init_state(self, ctx):
         if isinstance(ctx.model_cfg, ModelConfig):
-            if self.head != "skip":
-                raise NotImplementedError(
-                    "m-FeDepth on LMs (aux_norms) is not ported yet")
-            return build(ctx.model_cfg).init(ctx.seed, device=ctx.device)
+            lm = build(ctx.model_cfg)
+            params = lm.init(ctx.seed, device=ctx.device)
+            if self.head == "aux":
+                # m-FeDepth on LMs: one rms-norm scale per depth unit,
+                # feeding the shared head (blockwise.lm_runner's
+                # head_loss reads aux_norms[block_idx])
+                params["aux_norms"] = torch.ones(
+                    lm.num_depth_units, ctx.model_cfg.d_model,
+                    dtype=torch.float32, device=ctx.device)
+            return params
         gen = torch.Generator(device=ctx.device).manual_seed(ctx.seed)
         if isinstance(ctx.model_cfg, ViTConfig):
             return vit.init(gen, ctx.model_cfg, device=ctx.device)

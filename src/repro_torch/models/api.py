@@ -1,5 +1,6 @@
 """Unified model API (port of ``repro.models.api``: the dense and vlm
-families and the attention-free ``ssm`` family, mamba2 and rwkv6).
+families, the attention-free ``ssm`` family (mamba2, rwkv6), the
+``hybrid`` zamba2 and the ``audio`` encoder-decoder whisper; MoE waits).
 
 ``build(cfg)`` -> ``LM`` with ``init``, ``loss_fn``, the serving entry
 points ``prefill`` (last-position logits) and ``decode_step`` (one token
@@ -19,7 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import cache_specs
 from repro_torch.configs.vit_t16 import ViTConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import mamba2_lm, resnet, rwkv6, transformer, vit
+from repro_torch.models import (mamba2_lm, resnet, rwkv6, transformer, vit,
+                                whisper, zamba2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +46,8 @@ class LM:
     @torch.inference_mode()
     def prefill(self, params, batch) -> torch.Tensor:
         """Last-position logits (B, 1, V) of ``batch["tokens"]`` (and, for
-        a VLM, its optional ``vision_embeds`` / ``mrope_positions``)."""
+        a VLM, its optional ``vision_embeds`` / ``mrope_positions``; for
+        whisper, its ``encoder_embeds``)."""
         return self.module.prefill(params, self.cfg, batch)
 
     @torch.inference_mode()
@@ -59,18 +62,32 @@ class LM:
     # ---- depth structure for FeDepth ------------------------------------
     @property
     def num_depth_units(self) -> int:
-        """Finest decomposition granularity (paper: 'finest blocks')."""
-        if self.cfg.family == "ssm":
-            return self.cfg.num_layers
-        return self.cfg.num_layers // self.cfg.moe_every
+        """Finest decomposition granularity (paper: 'finest blocks'): a
+        layer, a zamba2 group, whisper's encoder then decoder layers."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return zamba2.group_layout(cfg)[0]
+        if cfg.family == "ssm":
+            return cfg.num_layers
+        if cfg.is_encoder_decoder:
+            return cfg.encoder_layers + cfg.num_layers
+        return cfg.num_layers // cfg.moe_every
 
     def apply_range(self, params, x, lo: int, hi: int):
-        if self.cfg.family == "ssm":
-            return self.module.apply_layer_range(params, self.cfg, x, lo, hi)
-        return self.module.apply_unit_range(params, self.cfg, x, lo, hi)
+        """Depth units [lo, hi) over hidden states x -> (x, aux)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return zamba2.apply_group_range(params, cfg, x, lo, hi)
+        if cfg.family == "ssm":
+            return self.module.apply_layer_range(params, cfg, x, lo, hi)
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "whisper's blocks run through core.blockwise's encoder / "
+                "decoder split")
+        return self.module.apply_unit_range(params, cfg, x, lo, hi)
 
-    def forward_hidden(self, params, tokens):
-        return self.module.forward_hidden(params, self.cfg, tokens)
+    def forward_hidden(self, params, tokens, **kw):
+        return self.module.forward_hidden(params, self.cfg, tokens, **kw)
 
 
 def build(cfg: ModelConfig) -> LM:
@@ -79,9 +96,13 @@ def build(cfg: ModelConfig) -> LM:
         return LM(cfg, transformer)
     if cfg.family == "ssm":
         return LM(cfg, mamba2_lm if cfg.ssm_kind == "mamba2" else rwkv6)
+    if cfg.family == "hybrid":
+        return LM(cfg, zamba2)
+    if cfg.family == "audio":
+        return LM(cfg, whisper)
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (dense, vlm and "
-        f"ssm only)")
+        f"model family {cfg.family!r} is not ported yet (dense, vlm, ssm, "
+        f"hybrid and audio only)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,

@@ -1,10 +1,11 @@
 """GQA attention layer: params, full-sequence forward and one-token
 decode over a KV cache (port of ``repro.models.attention``).
 
-The forward calls ``repro_torch.kernels.ops.attention``: the CUDA
-flash-attention kernel on the card, its plain version on the CPU.  Decode
-attends one query over the cache in plain PyTorch, as the reference does
-in plain ``jnp``.
+The forward (causal self-attention, or non-causal for whisper's encoder)
+and whisper's cross-attention call ``repro_torch.kernels.ops.attention``:
+the CUDA flash-attention kernel on the card, its plain version on the
+CPU.  Decode attends one query over the cache in plain PyTorch, as the
+reference does in plain ``jnp``.
 """
 from __future__ import annotations
 
@@ -66,13 +67,15 @@ def _rotate(cfg: ModelConfig, q, k, positions, mrope_positions):
 
 
 def forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
-            positions: torch.Tensor, *,
-            mrope_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence causal attention. x: (B, T, D); positions: (B, T);
-    mrope_positions: (3, B, T) or None."""
+            positions: Optional[torch.Tensor], *,
+            mrope_positions: Optional[torch.Tensor] = None,
+            causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention. x: (B, T, D); positions: (B, T) (None for
+    whisper, whose positions are learned); mrope_positions: (3, B, T) or
+    None."""
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rotate(cfg, q, k, positions, mrope_positions)
-    out = ops.attention(q, k, v, causal=True,
+    out = ops.attention(q, k, v, causal=causal,
                         sliding_window=cfg.sliding_window)
     B, T = out.shape[:2]
     return out.reshape(B, T, -1) @ p["wo"]
@@ -109,3 +112,27 @@ def decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", probs, cache_v.float()).to(x.dtype)
     return out.reshape(B, 1, -1) @ p["wo"]
+
+
+def cross_attention_init(gen: torch.Generator, cfg: ModelConfig, *, device,
+                         dtype=common.DEFAULT_DTYPE) -> dict:
+    return init(gen, cfg, device=device, dtype=dtype)
+
+
+def cross_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  enc_out: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over the encoder output: no mask, no RoPE.
+    x: (B, T, D); enc_out: (B, S, D), cast to x's dtype (JAX promotes a
+    bf16 ``enc_out`` against the fp32 weights).  As in the reference only
+    the query takes its bias."""
+    B, T, _ = x.shape
+    S = enc_out.shape[1]
+    hd = cfg.head_dim
+    enc_out = enc_out.to(torch.promote_types(enc_out.dtype, p["wk"].dtype))
+    q = (x @ p["wq"]).reshape(B, T, cfg.num_heads, hd)
+    k = (enc_out @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (enc_out @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(1, 1, cfg.num_heads, hd)
+    out = ops.attention(q, k, v, causal=False)
+    return out.reshape(B, T, -1) @ p["wo"]

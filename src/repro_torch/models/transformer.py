@@ -136,7 +136,8 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     x, aux = _forward_batch(p, cfg, batch)
     x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
     if batch.get("vision_embeds") is not None:
-        x = x[:, batch["vision_embeds"].shape[1]:]
+        # K1 reads the hidden states as one contiguous (B*T, D) block
+        x = x[:, batch["vision_embeds"].shape[1]:].contiguous()
     ce, n = ops.cross_entropy(x, common.head_weight(p, cfg),
                               batch["labels"])
     loss = ce + cfg.router_aux_coef * aux

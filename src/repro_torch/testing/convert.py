@@ -5,7 +5,13 @@ The reference keeps a dense transformer as
 axis}}, "final_norm", "lm_head"}`` of arrays, and an ``ssm`` LM (mamba2,
 rwkv6) as ``{"embed", "layers": {... stacked leaves}, "final_norm"[,
 "lm_head"]}``; the port keeps ``params["units"]`` / ``params["layers"]``
-as a list with one dict per layer.  Matrices keep the
+as a list with one dict per layer.  A zamba2 tree stacks its mamba
+layers as (G, M, ...) leaves under ``"mamba_groups"``; the port keeps a
+list of G groups, each a list of M per-layer dicts.  A whisper tree
+stacks ``"enc_layers"`` and ``"dec_layers"`` on a leading layer axis; the
+port keeps a list each.  Every other leaf (``shared``,
+``invocation_norms``, the positions, m-FeDepth's ``aux_norms``) crosses
+as it is.  Matrices keep the
 reference's (in, out) layout on both sides (the port multiplies
 ``x @ w``), so nothing is transposed.
 
@@ -24,7 +30,9 @@ list of base nets.
 
 A decode cache (``cache_from_reference`` / ``cache_to_reference``) keeps
 the reference's layout on both sides: a dict of leaves stacked on a
-leading layer axis, each in the reference's dtype.  numpy has no bf16 of
+leading layer axis, each in the reference's dtype (zamba2's
+``ssm_state`` / ``conv_state`` / ``k`` / ``v``, whisper's ``k`` / ``v``
+and its unstacked ``enc_out`` too).  numpy has no bf16 of
 its own, so a bf16 leaf crosses as float32 (exact) and ``dtypes`` names
 the dtype to cast it back to.
 
@@ -66,8 +74,18 @@ def _conv_layout(tree: Any, axes: tuple) -> Any:
                     if np.ndim(a) == 4 else np.array(a), tree)
 
 
+# the LM trees' keys stacked on a leading layer axis in the reference
+_LAYER_KEYS = ("units", "layers", "enc_layers", "dec_layers",
+               "mamba_groups")
+
+
 def _is_lm(tree: Dict[str, Any]) -> bool:
-    return "units" in tree or "layers" in tree
+    return any(k in tree for k in _LAYER_KEYS)
+
+
+def _unstack_all(stacked: Any) -> list:
+    n = len(tree_leaves(stacked)[0])
+    return [_unstack(stacked, i) for i in range(n)]
 
 
 def _is_vit(tree: Dict[str, Any]) -> bool:
@@ -95,15 +113,18 @@ def params_from_reference(tree: Any, *, device: DeviceLike = None,
         return tree_map(lambda a: torch.tensor(a, dtype=dtype, device=dev),
                         _conv_layout(tree, _HWIO_TO_OIHW))
     out = dict(tree)
-    key = "layers" if "layers" in tree else "units"
-    stacked = tree[key]
-    if key == "units":
-        if set(stacked) != {"sub_0"}:
-            raise NotImplementedError(
-                f"only one sublayer per unit is ported, got {sorted(stacked)}")
-        stacked = stacked["sub_0"]
-    n = len(tree_leaves(stacked)[0])
-    out[key] = [_unstack(stacked, i) for i in range(n)]
+    for key in _LAYER_KEYS:
+        if key not in tree:
+            continue
+        stacked = tree[key]
+        if key == "units":
+            if set(stacked) != {"sub_0"}:
+                raise NotImplementedError(f"only one sublayer per unit is "
+                                          f"ported, got {sorted(stacked)}")
+            stacked = stacked["sub_0"]
+        out[key] = _unstack_all(stacked)
+        if key == "mamba_groups":       # (G, M, ...): a list of lists
+            out[key] = [_unstack_all(group) for group in out[key]]
     return _tensors(out, dev, dtype)
 
 
@@ -117,10 +138,14 @@ def params_to_reference(params: Any) -> Any:
     if not _is_lm(host):
         return _conv_layout(host, _OIHW_TO_HWIO)
     out = dict(host)
-    if "layers" in host:
-        out["layers"] = _stack(host["layers"])
-    else:
+    for key in ("layers", "enc_layers", "dec_layers"):
+        if key in host:
+            out[key] = _stack(host[key])
+    if "units" in host:
         out["units"] = {"sub_0": _stack(host["units"])}
+    if "mamba_groups" in host:
+        out["mamba_groups"] = _stack([_stack(group)
+                                      for group in host["mamba_groups"]])
     return out
 
 

@@ -22,7 +22,9 @@ kernel launched.  So are the reduced ViT's loss and gradients (atol 1e-5,
 rtol 1e-4) and one stacked (vectorized) FeDepth group update of the
 reduced PreResNet and ViT (atol 1e-4, rtol 1e-3).  Serving: each
 family's reduced prefill and 8 decode steps on the card against the CPU
-(K2 on the dense and vlm prefills, K3 / K4 on every ssm decode step).
+(K2 on the dense, vlm and hybrid prefills, K3 / K4 on every ssm and
+hybrid decode step); reduced whisper's loss, gradients, prefill and
+decode steps (K2 non-causal, causal and cross, K1 on the tied head).
 """
 import dataclasses
 
@@ -47,7 +49,8 @@ from repro_torch.kernels.chunked_ce import chunked_cross_entropy  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import mamba2_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
-from repro_torch.models import build, init_cache, resnet, vit  # noqa: E402
+from repro_torch.models import (build, init_cache, resnet, vit,  # noqa: E402
+                                whisper)
 from repro_torch.testing.relu import resnet_gradients_on  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -89,6 +92,13 @@ ATTN_CASES = [
     (4, 768, 768, 12, 2, 128, True, 0, 0),
     (4, 512, 512, 32, 4, 128, True, 0, 0),
     (4, 512, 512, 32, 8, 120, True, 4096, 0),
+    # whisper-small: the encoder (non-causal, Tq = Tk = 1500, ragged
+    # against every tile), cross-attention over its output from 256
+    # decoder tokens and from one at decode; zamba2-1.2b's shared block
+    (4, 1500, 1500, 12, 12, 64, False, 0, 0),
+    (4, 256, 1500, 12, 12, 64, False, 0, 0),
+    (4, 1, 1500, 12, 12, 64, False, 0, 0),
+    (4, 256, 256, 32, 32, 64, True, 0, 0),
 ]
 CE_CASES = [
     # (N, D, V, share of labels ignored)
@@ -99,6 +109,7 @@ CE_CASES = [
     (333, 203, 1001, 0.25), (333, 203, 1001, 1.0),
     # D not a multiple of the 32-deep k slice, 16-byte copies
     (129, 100, 260, 0.0),
+    (1024, 2048, 32000, 0.1),           # zamba2-1.2b's head
 ]
 SSD_CASES = [
     # (B, T, H, P, N, dt scale, initial state)
@@ -114,6 +125,8 @@ SSD_CASES = [
     (1, 45, 2, 64, 256, 1.0, True),     # the widest state the block takes
     (1, 30, 2, 24, 18, 1.0, True),      # N % 4 != 0: 4-byte copies of B, C
     (4, 512, 32, 64, 128, 1.0, False),  # mamba2-370m's serving prefill
+    (4, 1, 32, 64, 128, 1.0, True),     # its decode step
+    (4, 256, 64, 64, 64, 1.0, False),   # zamba2-1.2b's mamba layers
 ]
 WKV_CASES = [
     # (B, T, H, D, initial state, exp(w) overflows)
@@ -129,6 +142,7 @@ WKV_CASES = [
     (1, 40, 3, 30, True, False),
     (1, 33, 5, 64, True, False),
     (4, 512, 64, 64, False, False),     # rwkv6-7b's serving prefill
+    (4, 1, 64, 64, True, False),        # its decode step
 ]
 SCAN_TOL = 1e-4
 
@@ -252,7 +266,7 @@ def test_rwkv6_scan_decay_near_one_against_float64(cuda):
 
 
 @pytest.mark.parametrize("N,D,V", [(300, 200, 1000), (64, 96, 50288),
-                                   (333, 203, 1001)])
+                                   (333, 203, 1001), (256, 768, 51865)])
 def test_tied_head_cross_entropy_matches_plain(cuda, N, D, V):
     """A tied head is ``embed.T``, a transposed view: the kernel reads the
     (V, D) table in place, and the gradient reaches ``embed``."""
@@ -349,13 +363,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 PATH_KERNELS = {"qwen2-7b": (flash_attention, chunked_cross_entropy),
                 "mamba2-370m": (mamba2_scan, chunked_cross_entropy),
-                "rwkv6-7b": (rwkv6_scan, chunked_cross_entropy)}
+                "rwkv6-7b": (rwkv6_scan, chunked_cross_entropy),
+                "zamba2-1.2b": (mamba2_scan, flash_attention,
+                                chunked_cross_entropy)}
 
 
 @pytest.mark.parametrize("arch", sorted(PATH_KERNELS))
 def test_round_on_the_card_matches_the_cpu(cuda, arch):
-    """One FeDepth round of the reduced model (4 layers) through the CUDA
-    kernels equals the same round on the CPU."""
+    """One FeDepth round of the reduced model (4 layers; zamba2's two
+    groups) through the CUDA kernels equals the same round on the
+    CPU."""
     cfg = dataclasses.replace(get_reduced_config(arch), num_layers=4)
     sim = SimConfig(rounds=1, participation=0.5, lr=0.05, local_steps=1,
                     batch_size=4, seed=0)
@@ -424,6 +441,73 @@ def test_serving_on_the_card_matches_the_cpu(cuda, arch):
         assert flash_attention.launches == before[0]
         if cfg.family == "ssm":
             assert scan.launches > before[KERNELS.index(scan)]
+
+
+def test_zamba2_serving_on_the_card_matches_the_cpu(cuda):
+    """Reduced zamba2's prefill (K2 and K3) and 8 decode steps (K3 at
+    T = 1 in every mamba layer, K2 on none) on the card against the CPU,
+    every cache leaf in fp32 and each step from the CPU's cache: a new
+    bf16 K / V entry on a rounding boundary may round either way on the
+    two sides and move that step's logits by ~1e-3, so the bf16 leaves
+    would hold rounding, not the step.  Logits atol 1e-5 / rtol 1e-4
+    (prefill) and atol 1e-4 / rtol 1e-3 (decode), cache leaves atol 1e-5
+    / rtol 1e-4."""
+    cfg = get_reduced_config("zamba2-1.2b")
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    before = [fn.launches for fn in KERNELS]
+    got = lm.prefill(on_card, {"tokens": toks.to(cuda)})
+    np.testing.assert_allclose(got.cpu().numpy(), lm.prefill(
+        params, {"tokens": toks}).numpy(), atol=1e-5, rtol=1e-4)
+    assert flash_attention.launches > before[0]
+    assert mamba2_scan.launches > before[2]
+    cache = {k: v.float() for k, v in init_cache(cfg, 2, 12,
+                                                 device="cpu").items()}
+    for t in range(8):
+        before = [fn.launches for fn in KERNELS]
+        tok = toks[:, t:t + 1]
+        got, card_cache = lm.decode_step(
+            on_card, tok.to(cuda), tree_map(lambda c: c.to(cuda), cache), t)
+        assert flash_attention.launches == before[0]
+        assert mamba2_scan.launches > before[2]
+        want, cache = lm.decode_step(params, tok, cache, t)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-3)
+        for k, c in cache.items():
+            np.testing.assert_allclose(card_cache[k].cpu().numpy(),
+                                       c.numpy(), atol=1e-5, rtol=1e-4,
+                                       err_msg=f"step {t} {k}")
+
+
+def test_vlm_loss_on_the_card_matches_the_cpu(cuda):
+    """Reduced qwen2-vl's loss with a vision prefix (no loss on it: the
+    text's hidden states sliced off, made contiguous for K1) and every
+    gradient, card against CPU: loss atol 1e-5 / rtol 1e-4, gradients
+    atol 1e-4 / rtol 1e-3; K1 and K2 launch."""
+    cfg = get_reduced_config("qwen2-vl-2b")
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 13), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "vision_embeds": torch.randn(2, cfg.frontend_embed_tokens,
+                                          cfg.d_model, generator=gen)}
+    before = [fn.launches for fn in KERNELS]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        loss, _ = lm.loss_fn(p, tree_map(lambda t: t.to(dev), batch))
+        out[dev] = [t.detach().cpu() for t in (
+            loss, *torch.autograd.grad(loss, tree_leaves(p)))]
+    assert flash_attention.launches > before[0]
+    assert chunked_cross_entropy.launches > before[1]
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        tol = (1e-5, 1e-4) if i == 0 else (1e-4, 1e-3)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=tol[0],
+                                   rtol=tol[1])
 
 
 def test_preresnet20_on_the_card_matches_the_cpu(cuda):
@@ -595,3 +679,52 @@ def test_group_update_on_the_card_matches_the_cpu(cuda, family):
     for a, b in zip(tree_leaves(out["cuda"]), tree_leaves(out["cpu"])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-3)
+
+
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """Reduced whisper-small (2 + 2 layers, 64 frames): the loss and every
+    gradient (K2 non-causal in the encoder, causal and cross in the
+    decoder, K1 on the tied head), the prefill and 8 decode steps (K2
+    cross at Tq = 1 every step, from the CPU's cache before it) on the
+    card against the CPU: loss and prefill atol 1e-5 / rtol 1e-4,
+    gradients and decode logits atol 1e-4 / rtol 1e-3."""
+    cfg = get_reduced_config("whisper-small")
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 13), generator=gen)
+    frames = torch.randn(2, cfg.max_source_positions, cfg.d_model,
+                         generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "encoder_embeds": frames}
+    before = [fn.launches for fn in KERNELS]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        loss, _ = lm.loss_fn(p, tree_map(lambda t: t.to(dev), batch))
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        with torch.no_grad():
+            logits = lm.prefill(tree_map(lambda t: t.detach(), p),
+                                {"tokens": batch["tokens"].to(dev),
+                                 "encoder_embeds": frames.to(dev)})
+        out[dev] = [t.detach().cpu() for t in (loss, logits, *grads)]
+    launched = [fn.launches - n for fn, n in zip(KERNELS, before)]
+    assert launched[0] > 0 and launched[1] > 0 and launched[2:] == [0, 0]
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        tol = (1e-5, 1e-4) if i < 2 else (1e-4, 1e-3)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=tol[0],
+                                   rtol=tol[1])
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    cache = init_cache(cfg, 2, 12, device="cpu")
+    with torch.no_grad():
+        cache["enc_out"] = whisper.encode(params, cfg, frames).to(
+            cache["enc_out"].dtype)
+    for t in range(8):
+        before = flash_attention.launches
+        tok = toks[:, t:t + 1]
+        got, _ = lm.decode_step(on_card, tok.to(cuda),
+                                tree_map(lambda c: c.to(cuda), cache), t)
+        assert flash_attention.launches - before == cfg.num_layers
+        want, cache = lm.decode_step(params, tok, cache, t)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-3)

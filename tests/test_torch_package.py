@@ -35,24 +35,39 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 TREES = [("qwen2-7b", "units", ("units", "sub_0", "attn", "wq")),
          ("mamba2-370m", "layers", ("layers", "in_proj")),
          ("rwkv6-7b", "layers", ("layers", "w_lora_a")),
-         ("qwen2-vl-2b", "units", ("units", "sub_0", "attn", "bq"))]
+         ("qwen2-vl-2b", "units", ("units", "sub_0", "attn", "bq")),
+         ("zamba2-1.2b", "mamba_groups", ("mamba_groups", "in_proj")),
+         ("whisper-small", "enc_layers", ("enc_layers", "mlp", "w1")),
+         ("whisper-small", "dec_layers", ("dec_layers", "cross_attn", "wk"))]
 
 
 @pytest.mark.parametrize("arch,key,leaf", TREES)
 def test_convert_round_trip(arch, key, leaf):
     """reference -> port -> reference is exact, and so is port ->
-    reference -> port, for the dense ``units.sub_0`` tree and the ssm
-    ``layers`` tree; per-layer entries are the stacked rows."""
+    reference -> port, for the dense ``units.sub_0`` tree, the ssm
+    ``layers`` tree, zamba2's ``mamba_groups`` (G, M, ...) as lists of
+    lists (with ``shared``, ``invocation_norms`` and m-FeDepth's
+    ``aux_norms`` as they are) and whisper's ``enc_layers`` /
+    ``dec_layers``; per-layer entries are the stacked rows."""
     jparams = jax.tree.map(np.asarray, j_build(j_reduced(arch)).init(
         jax.random.PRNGKey(1)))
+    jparams["aux_norms"] = np.random.default_rng(0).standard_normal(
+        (2, 8)).astype(np.float32)
     params = params_from_reference(jparams, device="cpu")
     assert isinstance(params[key], list) and len(params[key]) == 2
     stacked, layer = jparams, params[key][1]
     for name in leaf:
         stacked = stacked[name]
+    stacked = stacked[1]
+    if key == "mamba_groups":          # group 1, its mamba layer 0
+        assert all(isinstance(g, list) and len(g) == 1
+                   for g in params[key])
+        layer, stacked = layer[0], stacked[0]
     for name in leaf[1 + (key == "units"):]:
         layer = layer[name]
-    np.testing.assert_array_equal(layer.numpy(), stacked[1])
+    np.testing.assert_array_equal(layer.numpy(), stacked)
+    np.testing.assert_array_equal(params["aux_norms"].numpy(),
+                                  jparams["aux_norms"])
     back = params_to_reference(params)
     fa = jax.tree_util.tree_flatten_with_path(back)[0]
     fb = dict(jax.tree_util.tree_flatten_with_path(jparams)[0])
@@ -101,11 +116,13 @@ IMAGE_PATH = ("configs.preresnet20", "models.resnet", "core.mkd",
               "models.api", "core.memory_model", "core.blockwise",
               "fl.strategy", "fl.engine", "fl.strategies.fedepth",
               "fl.strategies.common")
-# the serving path's modules
+# the serving path's modules, the hybrid's and the encoder-decoder's
 SERVING_PATH = ("configs.shapes", "configs.yi_6b", "configs.h2o_danube3_4b",
                 "configs.minicpm_2b", "configs.qwen2_vl_2b", "launch",
                 "launch.serve", "models.attention", "models.transformer",
-                "models.mamba2", "models.mamba2_lm", "models.rwkv6")
+                "models.mamba2", "models.mamba2_lm", "models.rwkv6",
+                "configs.zamba2_1_2b", "configs.whisper_small",
+                "models.zamba2", "models.whisper")
 
 
 def test_port_imports_neither_jax_nor_reference():

@@ -486,18 +486,24 @@ def test_serve_cli_on_the_cpu():
 def test_serve_loop_and_refusals():
     """``serve`` returns the generated tokens (greedy: the argmax of the
     logits before each), the last prompt token's logits equal to a fresh
-    walk's, and the timings; unported archs raise, and an encoder-decoder
-    exits as the reference's driver does."""
-    res = serve_mod.main(["--arch", "yi-6b", "--reduced", "--device", "cpu",
-                          "--batch", "2", "--prompt-len", "5", "--gen", "4"])
-    assert res.tokens.shape == (2, 4) and res.logits.shape == (2, 1, 512)
-    assert res.prompt_seconds > 0 and res.decode_seconds > 0
-    assert torch.equal(res.tokens[:, :1], res.prompt_logits[:, -1].argmax(
-        -1, keepdim=True))
-    for arch in ("zamba2-1.2b", "whisper-small", "qwen3-moe-235b-a22b",
-                 "llama4-maverick-400b-a17b"):
+    walk's, and the timings, for a dense model and for the hybrid zamba2
+    (mamba states and one KV cache per shared-block invocation); the
+    unported MoE archs raise, and an encoder-decoder exits as the
+    reference's driver does."""
+    for arch in ("yi-6b", "zamba2-1.2b"):
+        res = serve_mod.main(["--arch", arch, "--reduced", "--device",
+                              "cpu", "--batch", "2", "--prompt-len", "5",
+                              "--gen", "4"])
+        assert res.tokens.shape == (2, 4) and res.logits.shape == (2, 1, 512)
+        assert res.prompt_seconds > 0 and res.decode_seconds > 0
+        assert torch.equal(res.tokens[:, :1], res.prompt_logits[
+            :, -1].argmax(-1, keepdim=True))
+    for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             serve_mod.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="whisper"):
+        serve_mod.main(["--arch", "whisper-small", "--reduced", "--device",
+                        "cpu"])
     cfg = dataclasses.replace(get_reduced_config("yi-6b"),
                               is_encoder_decoder=True)
     with pytest.raises(SystemExit, match="whisper"):
