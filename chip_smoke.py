@@ -214,7 +214,7 @@ def check_attention(gen, case: dict, timed: bool):
     if not ok:
         raise AssertionError(f"flash attention {case['name']}: {err}")
     if not timed:
-        return None
+        return dict(max_abs_err=err)
     if case.get("f64"):
         # per row: each row's largest distance, then the largest row
         check_against_f64(
@@ -274,7 +274,7 @@ def check_ce(gen, case: dict, timed: bool):
     if not ok:
         raise AssertionError(f"chunked CE {case['name']}: {rel}")
     if not timed:
-        return None
+        return dict(max_abs_err=float((loss - ref).abs()))
     if case.get("f64"):
         check_ce_against_f64(case, h, w, labels)
     err = float((loss - ref).abs())
@@ -359,7 +359,7 @@ def check_scan(what: str, kernel, plain, op, case: dict, args, flops: float,
     if not ok:
         raise AssertionError(f"{what} {case['name']}: {err}")
     if not timed:
-        return None
+        return dict(max_abs_err=err)
     ms = time_ms(lambda: kernel(*args), 20)
     device_ms = time_ms(lambda: kernel(*args), 20, fill=True)
     plain_ms = time_ms(lambda: plain(*args), 3, warmup=1)
@@ -459,18 +459,52 @@ def check_rwkv6(gen, case: dict, timed: bool):
                       (r, k, v, w, u, s0), flops, nbytes, timed)
 
 
-def phase_kernels() -> dict:
-    """Every kernel against its plain version.  The first case of each
-    is the shape its path gives it, and is timed for the kernel line; the
-    other paths' shapes are timed too, each kept under ``heads`` with the
-    path it serves (and the run, ``stage``, where one run alone gives
-    it that shape)."""
+def _case_key(kernel: str, case: dict) -> tuple:
+    """The shape a phase-3 case checks, as :func:`_launch_key` names a
+    launch's."""
+    if kernel == "flash_attention":
+        return (*(case[k] for k in ("B", "Tq", "Tk", "Hq", "Hkv", "D")),
+                bool(case["causal"]), int(case["window"]),
+                int(case["q_offset"]))
+    if kernel == "chunked_cross_entropy":
+        return (case["N"], case["D"], case["V"], bool(case.get("tied")))
+    if kernel == "mamba2_scan":
+        return tuple(case[k] for k in ("B", "T", "H", "P", "N"))
+    return tuple(case[k] for k in ("B", "T", "H", "D"))
+
+
+def _launch_key(kernel: str, args: tuple, kw: dict) -> tuple:
+    """The shape of one wrapper call: K2's (B, Tq, Tk, Hq, Hkv, D, causal,
+    window, q_offset), K1's (rows, D, V, head read as a (V, D) table),
+    K3's (B, T, H, P, N), K4's (B, T, H, D)."""
+    if kernel == "flash_attention":
+        q, k = args[0], args[1]
+        return (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3], bool(kw.get("causal", True)),
+                int(kw.get("sliding_window") or 0), int(kw.get("q_offset", 0)))
+    if kernel == "chunked_cross_entropy":
+        h, w = args[0], args[1]
+        return (h.numel() // h.shape[-1], w.shape[0], w.shape[1],
+                w.stride(-1) != 1)
+    if kernel == "mamba2_scan":
+        return (*args[0].shape, args[3].shape[-1])
+    return tuple(args[0].shape)
+
+
+def phase_kernels():
+    """Every kernel against its plain version, at every shape that a
+    counted run of the later phases launches it at (``main`` fails on a
+    launch at a shape not checked here), and at edge cases.  The first
+    case of each kernel is timed for the kernel line, and the cases marked
+    ``timed`` too.  Returns (the first cases' numbers, {kernel: {shape:
+    the record of the case that the launches at that shape go to}})."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = dict(B=4, Tq=256, Tk=256, Hq=28, Hkv=4, D=128, causal=True,
                 window=0, q_offset=0)
     attn_cases = [
-        dict(attn, name="slice B4 T256 Hq28 Hkv4 D128 causal", f64=True),
+        dict(attn, name="slice B4 T256 Hq28 Hkv4 D128 causal", f64=True,
+             path="qwen2-7b"),
         dict(attn, name="ragged Tk=200", Tk=200),
         dict(attn, name="sliding window 64", window=64),
         dict(attn, name="non-causal Tq=100 Tk=300", Tq=100, Tk=300,
@@ -518,9 +552,45 @@ def phase_kernels() -> dict:
              timed=True, path="whisper-small"),
         dict(attn, name="whisper-small cross at decode B4 Tq1 Tk1500 H12 D64",
              Tq=1, Tk=1500, Hq=12, Hkv=12, D=64, causal=False, seed=15,
-             timed=True, path="whisper-small", stage="serve decode"),
+             timed=True, path="whisper-small"),
         dict(attn, name="zamba2-1.2b shared block B4 T256 H32 D64 causal",
              Hq=32, Hkv=32, D=64, seed=16, timed=True, path="zamba2-1.2b"),
+        # the rest of the paths' shapes: zamba2's prefill (512 tokens),
+        # whisper's decoder in training (256 tokens) and prefill (64), the
+        # new dense runs' training (4 x 256 tokens; the VLM client's 256
+        # vision + 256 text), and the engine's eval of 16 test sequences
+        dict(attn, name="zamba2-1.2b prefill B4 T512 H32 D64 causal",
+             Tq=512, Tk=512, Hq=32, Hkv=32, D=64, seed=23, timed=True,
+             path="zamba2-1.2b"),
+        dict(attn, name="whisper-small decoder B4 T256 H12 D64 causal",
+             Hq=12, Hkv=12, D=64, seed=24, timed=True, path="whisper-small"),
+        dict(attn, name="whisper-small prefill decoder B4 T64 H12 D64 causal",
+             Tq=64, Tk=64, Hq=12, Hkv=12, D=64, seed=25, timed=True,
+             path="whisper-small"),
+        dict(attn, name="whisper-small prefill cross B4 Tq64 Tk1500 H12 D64",
+             Tq=64, Tk=1500, Hq=12, Hkv=12, D=64, causal=False, seed=26,
+             timed=True, path="whisper-small"),
+        dict(attn, name="h2o-danube-3-4b B4 T256 Hq32 Hkv8 D120 causal, "
+             "window 4096", Hq=32, Hkv=8, D=120, window=4096, seed=27,
+             timed=True, path="h2o-danube-3-4b"),
+        dict(attn, name="minicpm-2b B4 T256 Hq36 Hkv36 D64 causal", Hq=36,
+             Hkv=36, D=64, seed=28, timed=True, path="minicpm-2b"),
+        dict(attn, name="qwen2-vl-2b B4 T256 Hq12 Hkv2 D128 causal", Hq=12,
+             Hkv=2, seed=29, timed=True, path="qwen2-vl-2b"),
+        dict(attn, name="qwen2-vl-2b vision client B4 T512 Hq12 Hkv2 D128 "
+             "causal", Tq=512, Tk=512, Hq=12, Hkv=2, seed=30, timed=True,
+             path="qwen2-vl-2b"),
+        dict(attn, name="qwen2-7b eval B16 T256 Hq28 Hkv4 D128 causal", B=16,
+             seed=31, path="qwen2-7b"),
+        dict(attn, name="zamba2-1.2b eval B16 T256 H32 D64 causal", B=16,
+             Hq=32, Hkv=32, D=64, seed=32, path="zamba2-1.2b"),
+        dict(attn, name="h2o-danube-3-4b eval B16 T256 Hq32 Hkv8 D120 "
+             "causal, window 4096", B=16, Hq=32, Hkv=8, D=120, window=4096,
+             seed=33, path="h2o-danube-3-4b"),
+        dict(attn, name="minicpm-2b eval B16 T256 Hq36 Hkv36 D64 causal",
+             B=16, Hq=36, Hkv=36, D=64, seed=34, path="minicpm-2b"),
+        dict(attn, name="qwen2-vl-2b eval B16 T256 Hq12 Hkv2 D128 causal",
+             B=16, Hq=12, Hkv=2, seed=35, path="qwen2-vl-2b"),
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
@@ -545,10 +615,18 @@ def phase_kernels() -> dict:
         dict(name="whisper-small tied head (embed.T) N1024 D768 V51865",
              N=1024, D=768, V=51865, ignore_every=7, tied=True, timed=True,
              path="whisper-small"),
+        dict(name="h2o-danube-3-4b head N1024 D3840 V32000", N=1024, D=3840,
+             V=32000, ignore_every=7, path="h2o-danube-3-4b"),
+        dict(name="minicpm-2b tied head (embed.T) N1024 D2304 V122753",
+             N=1024, D=2304, V=122753, ignore_every=7, tied=True,
+             path="minicpm-2b"),
+        dict(name="qwen2-vl-2b tied head (embed.T) N1024 D1536 V151936",
+             N=1024, D=1536, V=151936, ignore_every=7, tied=True,
+             path="qwen2-vl-2b"),
     ]
     ssd = dict(B=4, T=256, H=32, P=64, N=128)
     ssd_cases = [
-        dict(ssd, name="slice B4 T256 H32 P64 N128"),
+        dict(ssd, name="slice B4 T256 H32 P64 N128", path="mamba2-370m"),
         dict(ssd, name="ragged T=200", T=200),
         dict(ssd, name="initial state, T=77", T=77, s0=True),
         dict(ssd, name="T=1, initial state", T=1, s0=True),
@@ -564,14 +642,21 @@ def phase_kernels() -> dict:
              seed=11, timed=True, path="mamba2-370m"),
         # a decode step: one token from the carried state
         dict(ssd, name="mamba2-370m decode B4 T1 H32 P64 N128", T=1,
-             s0=True, seed=17, timed=True, path="mamba2-370m",
-             stage="serve decode"),
+             s0=True, seed=17, timed=True, path="mamba2-370m"),
         dict(name="zamba2-1.2b B4 T256 H64 P64 N64", B=4, T=256, H=64, P=64,
              N=64, seed=18, timed=True, path="zamba2-1.2b"),
+        dict(name="zamba2-1.2b prefill B4 T512 H64 P64 N64", B=4, T=512,
+             H=64, P=64, N=64, seed=36, timed=True, path="zamba2-1.2b"),
+        dict(name="zamba2-1.2b decode B4 T1 H64 P64 N64", B=4, T=1, H=64,
+             P=64, N=64, s0=True, seed=37, timed=True, path="zamba2-1.2b"),
+        dict(ssd, name="mamba2-370m eval B16 T256 H32 P64 N128", B=16,
+             seed=38, path="mamba2-370m"),
+        dict(name="zamba2-1.2b eval B16 T256 H64 P64 N64", B=16, T=256,
+             H=64, P=64, N=64, seed=39, path="zamba2-1.2b"),
     ]
     wkv = dict(B=4, T=256, H=64, D=64)
     wkv_cases = [
-        dict(wkv, name="slice B4 T256 H64 D64"),
+        dict(wkv, name="slice B4 T256 H64 D64", path="rwkv6-7b"),
         dict(wkv, name="ragged T=200", T=200),
         dict(wkv, name="initial state, T=77", T=77, s0=True),
         dict(wkv, name="T=1, initial state", T=1, s0=True),
@@ -588,9 +673,11 @@ def phase_kernels() -> dict:
         dict(wkv, name="rwkv6-7b prefill B4 T512 H64 D64", T=512, seed=12,
              timed=True, path="rwkv6-7b"),
         dict(wkv, name="rwkv6-7b decode B4 T1 H64 D64", T=1, s0=True,
-             seed=19, timed=True, path="rwkv6-7b", stage="serve decode"),
+             seed=19, timed=True, path="rwkv6-7b"),
+        dict(wkv, name="rwkv6-7b eval B16 T256 H64 D64", B=16, seed=40,
+             path="rwkv6-7b"),
     ]
-    out = {}
+    out, checked = {}, {}
     log("kernels vs plain PyTorch on the card:")
     for key, check, cases in (
             ("flash_attention", check_attention, attn_cases),
@@ -601,13 +688,17 @@ def phase_kernels() -> dict:
             g = (torch.Generator(device="cuda").manual_seed(case["seed"])
                  if "seed" in case else gen)
             rec = check(g, case, timed=i == 0 or case.get("timed", False))
-            if rec is not None:
-                head = dict(path=case.get("path"), stage=case.get("stage"),
-                            shape=case["name"], **rec)
-                out.setdefault(key, rec)
-                if head["path"]:
-                    out[key].setdefault("heads", []).append(head)
-    return out
+            if i == 0:
+                out[key] = dict(rec)
+            # an edge case may share a path's shape: the launches go to
+            # the case that names the path
+            shape = _case_key(key, case)
+            held = checked.setdefault(key, {})
+            if shape not in held or (case.get("path")
+                                     and not held[shape]["path"]):
+                held[shape] = dict(path=case.get("path"), shape=case["name"],
+                                   **rec)
+    return out, checked
 
 
 # --------------------------------------------------------------- phase 4
@@ -714,21 +805,13 @@ def device_busy(fn):
 
 
 def _run_counted(engine):
-    """``engine.run(eval_every=1)`` with every kernel's launch count set
-    to 0 just before and read just after; returns (state, history,
-    launches, wall seconds)."""
+    """``engine.run(eval_every=1)`` through :func:`_counted`; returns
+    (state, history, launches, wall seconds, launches by shape)."""
     import torch
-    counters = _launch_counters()
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    state, history = engine.run(eval_every=1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return state, history, {name: fn.launches
-                            for name, fn in counters.items()}, wall
+    (state, history), launches, wall, shapes = _counted(
+        lambda: engine.run(eval_every=1))
+    return state, history, launches, wall, shapes
 
 
 def _check_run(name, loss, history, state, multi_block) -> None:
@@ -754,7 +837,7 @@ def phase_path(arch: str, layers: int, kernels: tuple,
                method: str = "fedepth") -> dict:
     """Two rounds of ``method`` (``fedepth``, ``m-fedepth`` or
     ``depthfl``) on ``arch`` at every published width with ``layers``
-    layers; returns this run's launch counts."""
+    layers; returns this run's launch counts and its launches by shape."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.decomposition import schedule_summary
@@ -787,7 +870,7 @@ def phase_path(arch: str, layers: int, kernels: tuple,
             log(f"client {cid} (r={ctx.ratios[cid]:.3f}): "
                 + schedule_summary(dec, ctx.mem).replace("\n", " |"))
     cohorts, peaks = _instrument(engine)
-    state, history, launches, wall = _run_counted(engine)
+    state, history, launches, wall, shapes = _run_counted(engine)
     with torch.no_grad():
         loss = float(build(cfg).loss_fn(state, {"tokens": data.x_test[:4],
                                                 "labels": data.y_test[:4]})[0])
@@ -829,31 +912,49 @@ def phase_path(arch: str, layers: int, kernels: tuple,
     del state, engine, ctx, data
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, shapes
 
 
-def _attention_modes(fn):
-    """``fn()`` with K2's calls through ``kernels.ops`` sorted by mode,
-    counting only the calls that launched the kernel: (its result,
-    {"causal" | "non-causal" (Tq = Tk) | "cross" (Tq != Tk): calls})."""
+def _recording_shapes(fn):
+    """``fn()`` with each kernel wrapper's calls through ``kernels.ops``
+    recorded by :func:`_launch_key`, counting only the calls that launched
+    the kernel: (its result, {kernel: {shape: launches}})."""
     from repro_torch.kernels import ops
-    inner = ops.flash_attention
-    modes = {}
+    inner = {name: getattr(ops, name) for name in KERNEL_META}
+    shapes = {}
 
-    def recording(q, k, v, **kw):
-        before = inner.launches
-        out = inner(q, k, v, **kw)
-        if inner.launches > before:
-            mode = ("cross" if q.shape[1] != k.shape[1]
-                    else "causal" if kw["causal"] else "non-causal")
-            modes[mode] = modes.get(mode, 0) + 1
-        return out
+    def recording(name):
+        wrapper = inner[name]
 
-    ops.flash_attention = recording
+        def call(*args, **kw):
+            before = wrapper.launches
+            out = wrapper(*args, **kw)
+            if wrapper.launches > before:
+                per = shapes.setdefault(name, {})
+                key = _launch_key(name, args, kw)
+                per[key] = per.get(key, 0) + wrapper.launches - before
+            return out
+        return call
+
+    for name in inner:
+        setattr(ops, name, recording(name))
     try:
-        return fn(), modes
+        return fn(), shapes
     finally:
-        ops.flash_attention = inner
+        for name, wrapper in inner.items():
+            setattr(ops, name, wrapper)
+
+
+def _attention_modes(shapes: dict) -> dict:
+    """K2's launches by mode: {"causal" | "non-causal" (Tq = Tk) |
+    "cross" (Tq != Tk): launches}."""
+    modes = {}
+    for key, n in shapes.get("flash_attention", {}).items():
+        _, Tq, Tk, _, _, _, causal, _, _ = key
+        mode = ("cross" if Tq != Tk else "causal" if causal
+                else "non-causal")
+        modes[mode] = modes.get(mode, 0) + n
+    return modes
 
 
 def _lm_client_update(name: str, lm, params, dec, batches,
@@ -861,7 +962,8 @@ def _lm_client_update(name: str, lm, params, dec, batches,
     """One FeDepth ``client_update`` of ``lm`` on the card (``lr`` 0.05,
     momentum 0.9, the prefix cache on), its launch counts and K2's modes
     read from that call alone; checks finite, moved parameters and the
-    ``kernels`` launched; returns the launches."""
+    ``kernels`` launched; returns the launches and the launches by
+    shape."""
     import torch
     from repro_torch.core import blockwise
     from repro_torch.tree import tree_leaves
@@ -869,9 +971,10 @@ def _lm_client_update(name: str, lm, params, dec, batches,
     with torch.no_grad():
         before = float(blockwise.full_model_loss(runner, params, batches[0]))
     torch.cuda.reset_peak_memory_stats()
-    (out, modes), launches, secs = _counted(lambda: _attention_modes(
+    out, launches, secs, shapes = _counted(
         lambda: blockwise.client_update(runner, params, dec, batches,
-                                        lr=0.05, momentum=0.9)))
+                                        lr=0.05, momentum=0.9))
+    modes = _attention_modes(shapes)
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
         after = float(blockwise.full_model_loss(runner, out, batches[0]))
@@ -887,7 +990,7 @@ def _lm_client_update(name: str, lm, params, dec, batches,
         raise AssertionError(f"{name}: finite {finite}, loss {after}, "
                              f"moved {moved}, kernels not launched "
                              f"{missing}")
-    return launches, modes
+    return launches, shapes
 
 
 def phase_vlm_client(device="cuda") -> dict:
@@ -910,13 +1013,13 @@ def phase_vlm_client(device="cuda") -> dict:
         batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:],
                         "vision_embeds": _vlm_inputs(
                             cfg, 4, 256, gen, device)["vision_embeds"]})
-    launches, _ = _lm_client_update(
+    run = _lm_client_update(
         "qwen2-vl-2b client update with a vision prefix", lm, params,
         Decomposition(((0, 1), (1, 3), (3, 4)), 0, 0), batches,
         ("chunked_cross_entropy", "flash_attention"))
     del params, batches
     torch.cuda.empty_cache()
-    return launches
+    return run
 
 
 WHISPER_BATCH, WHISPER_TOKENS = 4, 256
@@ -973,16 +1076,17 @@ def phase_whisper_client(device="cuda") -> dict:
         + schedule_summary(dec, mem).replace("\n", " |"))
     params = lm.init(0, device=device)
     gen = torch.Generator(device=device).manual_seed(22)
-    launches, modes = _lm_client_update(
+    run = _lm_client_update(
         "whisper-small client update", lm, params, dec,
         _whisper_batches(cfg, 2, gen, device),
         ("chunked_cross_entropy", "flash_attention"))
+    modes = _attention_modes(run[1])
     if set(modes) != {"causal", "non-causal", "cross"}:
         raise AssertionError(f"whisper-small: K2 modes {modes}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return run
 
 
 # --------------------------------------------------------------- phase 5
@@ -1151,7 +1255,7 @@ def phase_image(data, method: str, scenario: str,
             return result
 
         engine.strategy.client_update = recording_update
-    state, history, launches, wall = _run_counted(engine)
+    state, history, launches, wall, _ = _run_counted(engine)
     loss = _image_loss(method, engine.strategy, state, data.x_test[:512],
                        data.y_test[:512])
     cfg = getattr(engine.strategy, "sub_cfg", CONFIG)
@@ -1657,15 +1761,22 @@ def check_serving_two_layers(arch: str, device="cuda") -> None:
 
 def _counted(fn):
     """``fn()`` with every kernel's launch count set to 0 just before and
-    read just after: (its result, the launches, synchronised seconds)."""
+    read just after, and its launches recorded by shape: (its result, the
+    launches, synchronised seconds, {kernel: {shape: launches}}).  Fails
+    if a launch did not go through ``kernels.ops``, where it is recorded."""
     import torch
     counters = _zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn()
+    out, shapes = _recording_shapes(fn)
     torch.cuda.synchronize()
-    return out, {k: f.launches for k, f in counters.items()}, \
-        time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    for name, n in launches.items():
+        if sum(shapes.get(name, {}).values()) != n:
+            raise AssertionError(f"{name}: {n} launches, by shape through "
+                                 f"kernels.ops {shapes.get(name)}")
+    return out, launches, secs, shapes
 
 
 def _bounds(cfg, params, B: int, T: int, P: int, gen: int):
@@ -1718,7 +1829,8 @@ def phase_serve_model(arch: str, prefill_kernels: tuple, decode_kernel,
     generated tokens).  Checks the launches (K1 none; each of
     ``prefill_kernels`` on the prefill; ``decode_kernel`` on the decode steps, K2 on none)
     and finite logits; logs the decode walk against a prefill of the same
-    prompts.  Returns the prefill's and the serve loop's launches."""
+    prompts.  Returns the prefill's and the serve loop's launches, each
+    with its launches by shape."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
@@ -1741,12 +1853,13 @@ def phase_serve_model(arch: str, prefill_kernels: tuple, decode_kernel,
                                      generator=gen, device=device),
              **_vlm_inputs(cfg, B, T, gen, device)}
     first_s = _counted(lambda: lm.prefill(params, batch))[2]
-    logits, pf_launch, pf_s = _counted(lambda: lm.prefill(params, batch))
+    logits, pf_launch, pf_s, pf_shapes = _counted(
+        lambda: lm.prefill(params, batch))
     pf_peak = torch.cuda.max_memory_allocated()
     prompt = torch.randint(0, cfg.vocab_size, (B, SERVE_PROMPT),
                            generator=gen, device=device)
-    res, dec_launch, _ = _counted(lambda: serve(lm, params, prompt,
-                                                SERVE_GEN))
+    res, dec_launch, _, dec_shapes = _counted(
+        lambda: serve(lm, params, prompt, SERVE_GEN))
     peak = torch.cuda.max_memory_allocated()
     pf_prompt = lm.prefill(params, {"tokens": prompt})
     dist = float((res.prompt_logits - pf_prompt).abs().max())
@@ -1800,23 +1913,32 @@ def phase_serve_model(arch: str, prefill_kernels: tuple, decode_kernel,
     del params, logits, res, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"prefill": pf_launch, "decode": dec_launch}
+    return {"prefill": (pf_launch, pf_shapes),
+            "decode": (dec_launch, dec_shapes)}
 
 
 WHISPER_PROMPT, WHISPER_STEPS = 64, 32   # prefill tokens; decode steps
 
 
-def _whisper_walk(lm, params, frames, toks):
-    """``enc_out`` of ``frames`` into a fresh cache (bf16, its spec's
-    dtype), then ``toks`` (B, T) fed one at a time through
-    ``decode_step``; the logits after each."""
+def _whisper_encode(lm, params, frames):
+    """The encoder's output for ``frames``, in ``enc_out``'s cache dtype
+    (bf16)."""
     import torch
-    from repro_torch.models import init_cache, whisper
+    from repro_torch.configs.shapes import cache_specs
+    from repro_torch.models import whisper
+    dtype = cache_specs(lm.cfg, frames.shape[0], 1)["enc_out"].dtype
+    with torch.inference_mode():
+        return whisper.encode(params, lm.cfg, frames).to(dtype)
+
+
+def _whisper_walk(lm, params, enc_out, toks):
+    """``enc_out`` (from :func:`_whisper_encode`) in a fresh cache, then
+    ``toks`` (B, T) fed one at a time through ``decode_step``; the logits
+    after each."""
+    from repro_torch.models import init_cache
     cache = init_cache(lm.cfg, toks.shape[0], toks.shape[1],
                        device=toks.device)
-    with torch.inference_mode():
-        cache["enc_out"] = whisper.encode(params, lm.cfg, frames).to(
-            cache["enc_out"].dtype)
+    cache["enc_out"] = enc_out
     out = []
     for t in range(toks.shape[1]):
         logits, cache = lm.decode_step(params, toks[:, t:t + 1], cache, t)
@@ -1868,8 +1990,8 @@ def check_whisper_serving_small(device="cuda") -> None:
     params = lm.init(0, device=device)
     gen = torch.Generator(device=device).manual_seed(2)
     batch = _whisper_inputs(cfg, 2, 10, gen, device)
-    dec = _whisper_walk(lm, params, batch["encoder_embeds"],
-                        batch["tokens"])[-1]
+    dec = _whisper_walk(lm, params, _whisper_encode(
+        lm, params, batch["encoder_embeds"]), batch["tokens"])[-1]
     pf = lm.prefill(params, batch)
     err = float((dec - pf).abs().max())
     ok = bool(((dec - pf).abs() <= DECODE_ATOL + DECODE_RTOL * pf.abs()).all())
@@ -1887,8 +2009,9 @@ def check_whisper_serving_small(device="cuda") -> None:
     got = lm.prefill(on_card, {k: v.to(device) for k, v in batch.items()})
     rel = _rel(got.cpu(), lm.prefill(params, batch))
     ok = math.isfinite(rel) and rel <= LOSS_RTOL
-    walks = [_whisper_walk(lm, p, batch["encoder_embeds"].to(d),
-                           batch["tokens"][:, :8].to(d))
+    walks = [_whisper_walk(lm, p, _whisper_encode(
+                 lm, p, batch["encoder_embeds"].to(d)),
+                 batch["tokens"][:, :8].to(d))
              for p, d in ((on_card, device), (params, "cpu"))]
     dec = max(_rel(a.cpu(), b) for a, b in zip(*walks))
     log(f"  whisper-small at every width, 2 + 2 layers: prefill card vs cpu "
@@ -1902,9 +2025,10 @@ def check_whisper_serving_small(device="cuda") -> None:
 def phase_serve_whisper(device="cuda") -> dict:
     """whisper-small at every published width and depth: a timed prefill
     of 4 x 1500 frames and 4 x 64 tokens (K2 non-causal, causal and
-    cross), then a 32-step ``decode_step`` walk from the encoder's output
-    (K2 cross at Tq = 1 in every layer at every step; self-attention at
-    decode is plain), each after its reduced and 2 + 2-layer checks.
+    cross), then a 32-step ``decode_step`` walk from the encoder's output,
+    computed before it (K2 cross at Tq = 1 in every layer at every step;
+    self-attention at decode is plain), each after its reduced and 2 +
+    2-layer checks.
     ``serve`` refuses an encoder-decoder, as the reference's `serve` does,
     so the walk is driven directly.  Returns the prefill's and the walk's
     launches."""
@@ -1922,23 +2046,26 @@ def phase_serve_whisper(device="cuda") -> dict:
     B, T, G = SERVE_BATCH, WHISPER_PROMPT, WHISPER_STEPS
     batch = _whisper_inputs(cfg, B, T, gen, device)
     first_s = _counted(lambda: lm.prefill(params, batch))[2]
-    (logits, modes), pf_launch, pf_s = _counted(
-        lambda: _attention_modes(lambda: lm.prefill(params, batch)))
+    logits, pf_launch, pf_s, pf_shapes = _counted(
+        lambda: lm.prefill(params, batch))
+    modes = _attention_modes(pf_shapes)
     pf_peak = torch.cuda.max_memory_allocated()
     toks = batch["tokens"][:, :G]
-    walk, dec_launch, walk_s = _counted(
-        lambda: _whisper_walk(lm, params, batch["encoder_embeds"], toks))
+    # the encoder runs once, before the walk, as prefill runs it: the
+    # walk's time and launches are the decode steps' alone
+    enc_out = _whisper_encode(lm, params, batch["encoder_embeds"])
+    walk, dec_launch, walk_s, dec_shapes = _counted(
+        lambda: _whisper_walk(lm, params, enc_out, toks))
     peak = torch.cuda.max_memory_allocated()
     _, wall, busy, n_ops = device_busy(
-        lambda: _whisper_walk(lm, params, batch["encoder_embeds"],
-                              toks[:, :8]))
+        lambda: _whisper_walk(lm, params, enc_out, toks[:, :8]))
     pf_walk = lm.prefill(params, {"tokens": toks,
                                   "encoder_embeds": batch["encoder_embeds"]})
     dist = float((walk[-1] - pf_walk).abs().max())
     finite = all(bool(torch.isfinite(t).all())
                  for t in (logits, walk[-1]))
     (pf_b, pf_by, _), (st_b, st_by, _) = _whisper_bounds(cfg, B, T, G)
-    step_ms = walk_s / G * 1e3     # the encoder's one pass included
+    step_ms = walk_s / G * 1e3
     log(f"serve {cfg.name}: d_model {cfg.d_model} encoder "
         f"{cfg.encoder_layers} + decoder {cfg.num_layers} layers (all), "
         f"{cfg.max_source_positions} frames, vocab {cfg.vocab_size} tied, "
@@ -1948,11 +2075,10 @@ def phase_serve_whisper(device="cuda") -> dict:
         f"{pf_s:.4f} s (first call {first_s:.4f} s), bound "
         f"{pf_b / 1e3:.4f} s ({pf_by}), peak {pf_peak / 2**30:.2f} GiB, "
         f"launches {pf_launch}, K2 calls by mode {modes}")
-    log(f"  decode walk {B} x {G} steps (the encoder once, then cross K / V "
-        f"recomputed every step): {walk_s:.3f} s, {step_ms:.3f} ms a step "
-        f"(the encoder's pass spread over the steps), "
-        f"step bound {st_b:.3f} ms ({st_by}), peak {peak / 2**30:.2f} GiB, "
-        f"launches {dec_launch}")
+    log(f"  decode walk {B} x {G} steps from the encoder's output (cross "
+        f"K / V recomputed every step): {walk_s:.3f} s, {step_ms:.3f} ms a "
+        f"step, step bound {st_b:.3f} ms ({st_by}), peak "
+        f"{peak / 2**30:.2f} GiB, launches {dec_launch}")
     log(f"  profiled 8-step walk: {wall:.3f} s, device busy {busy:.4f} s "
         f"over {n_ops} device operations, idle share {1 - busy / wall:.4f}")
     log(f"  decode walk vs prefill of the same {G} tokens: max_abs_err "
@@ -1966,17 +2092,20 @@ def phase_serve_whisper(device="cuda") -> dict:
         bad.append("K1 launched")
     if set(modes) != {"causal", "non-causal", "cross"}:
         bad.append(f"prefill K2 modes {modes}")
-    # the encoder's 12 non-causal calls, then one cross call a layer a step
-    want = cfg.encoder_layers + G * cfg.num_layers
-    if dec_launch["flash_attention"] != want:
-        bad.append(f"decode walk launched K2 {dec_launch['flash_attention']} "
-                   f"times, not {want}")
+    # one cross call a layer a step, every one at Tq = 1
+    want = {(B, 1, cfg.max_source_positions, cfg.num_heads,
+             cfg.num_kv_heads, cfg.head_dim, False, 0, 0):
+            G * cfg.num_layers}
+    if dec_shapes.get("flash_attention") != want:
+        bad.append(f"decode walk launched K2 at "
+                   f"{dec_shapes.get('flash_attention')}, not {want}")
     if bad:
         raise AssertionError(f"serve {cfg.name}: {bad}")
-    del params, logits, walk, batch
+    del params, logits, walk, batch, enc_out
     gc.collect()
     torch.cuda.empty_cache()
-    return {"prefill": pf_launch, "decode": dec_launch}
+    return {"prefill": (pf_launch, pf_shapes),
+            "decode": (dec_launch, dec_shapes)}
 
 
 def phase_serving() -> dict:
@@ -2019,6 +2148,43 @@ KERNEL_META = {
 }
 
 
+def attribute_launches(kernels: list, checked: dict, by_run: dict) -> None:
+    """Each kernel's ``launches`` (the sum over the counted runs), its
+    serving runs' apart, and ``heads``: every phase-3 case that names a
+    path or that a run launched the kernel at, with its launches by run.
+    Fails on a launch at a shape that phase 3 did not check against the
+    plain version, and on a path's case that its path never launched."""
+    unchecked = []
+    for rec in kernels:
+        name, held = rec["name"], checked[rec["name"]]
+        for head in held.values():
+            head["runs"] = {}
+        for (arch, method), (launches, shapes) in by_run.items():
+            for shape, n in shapes.get(name, {}).items():
+                if shape not in held:
+                    unchecked.append((name, arch, method, shape, n))
+                    continue
+                runs = held[shape]["runs"]
+                runs[f"{arch} {method}"] = runs.get(f"{arch} {method}", 0) + n
+        rec["launches"] = sum(run[name] for run, _ in by_run.values())
+        rec["serving"] = {f"{arch} {method[len('serve '):]}": run[name]
+                          for (arch, method), (run, _) in by_run.items()
+                          if method.startswith("serve ")}
+        rec["heads"] = []
+        for head in held.values():
+            head["launches"] = sum(head["runs"].values())
+            if head["path"] or head["launches"]:
+                rec["heads"].append(head)
+    for name, arch, method, shape, n in unchecked:
+        log(f"{name}: {n} launches at {shape} in {arch} {method}, a shape "
+            f"phase 3 did not check")
+    unlaunched = [(rec["name"], h["shape"]) for rec in kernels
+                  for h in rec["heads"] if not h["launches"]]
+    if unchecked or unlaunched:
+        raise AssertionError(f"launches at unchecked shapes {unchecked}; "
+                             f"path cases never launched {unlaunched}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2029,8 +2195,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
-    numbers = phase_kernels()
-    launches = {name: 0 for name in KERNEL_META}
+    numbers, checked = phase_kernels()
     by_run = {}
     for arch, layers, path_kernels, method in PATHS:
         by_run[arch, method] = phase_path(arch, layers, path_kernels, method)
@@ -2038,32 +2203,14 @@ def main() -> int:
         phase_vlm_client()
     by_run["whisper-small", "fedepth client update"] = \
         phase_whisper_client()
-    for run in by_run.values():
-        for name, n in run.items():
-            launches[name] += n
     phase_images()
     phase_vit()
     for arch, runs in phase_serving().items():
         for stage, run in runs.items():
             by_run[arch, f"serve {stage}"] = run
-            for name, n in run.items():
-                launches[name] += n
-    # launches: the sum over the runs, each read from its own run; the
-    # serving runs' also apart; each kernel's heads (its other timed
-    # shapes) with the launches of their arch's runs (a row with a
-    # ``stage``: that run's alone)
-    for name, rec in numbers.items():
-        for head in rec.get("heads", []):
-            head["runs"] = {method: run[name]
-                            for (arch, method), run in by_run.items()
-                            if arch == head["path"]
-                            and head["stage"] in (None, method)}
-            head["launches"] = sum(head["runs"].values())
-        rec["serving"] = {f"{arch} {method[len('serve '):]}": run[name]
-                          for (arch, method), run in by_run.items()
-                          if method.startswith("serve ")}
-    kernels = [dict(name=name, **KERNEL_META[name], launches=launches[name],
-                    **numbers[name]) for name in KERNEL_META]
+    kernels = [dict(name=name, **KERNEL_META[name], **numbers[name])
+               for name in KERNEL_META]
+    attribute_launches(kernels, checked, by_run)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")

@@ -114,11 +114,6 @@ def decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return out.reshape(B, 1, -1) @ p["wo"]
 
 
-def cross_attention_init(gen: torch.Generator, cfg: ModelConfig, *, device,
-                         dtype=common.DEFAULT_DTYPE) -> dict:
-    return init(gen, cfg, device=device, dtype=dtype)
-
-
 def cross_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   enc_out: torch.Tensor) -> torch.Tensor:
     """Decoder cross-attention over the encoder output: no mask, no RoPE.

@@ -52,7 +52,7 @@ def _dec_layer_init(gen, cfg: ModelConfig, **kw) -> Params:
     return {"ln1": _ln_init(d, **kw),
             "self_attn": attention.init(gen, cfg, **kw),
             "ln2": _ln_init(d, **kw),
-            "cross_attn": attention.cross_attention_init(gen, cfg, **kw),
+            "cross_attn": attention.init(gen, cfg, **kw),
             "ln3": _ln_init(d, **kw),
             "mlp": _mlp_init(gen, d, cfg.d_ff, **kw)}
 
@@ -121,11 +121,9 @@ def apply_decoder_range(p: Params, cfg: ModelConfig, x: torch.Tensor,
                         enc_out: torch.Tensor, lo: int,
                         hi: int) -> torch.Tensor:
     """Decoder layers [lo, hi) over x, attending to ``enc_out``."""
-    positions = common.causal_positions(x.shape[0], x.shape[1],
-                                        device=x.device)
     for lp in p["dec_layers"][lo:hi]:
         h = ln(x, lp["ln1"], cfg.norm_eps)
-        x = x + attention.forward(lp["self_attn"], cfg, h, positions)
+        x = x + attention.forward(lp["self_attn"], cfg, h, None)
         h = ln(x, lp["ln2"], cfg.norm_eps)
         x = x + attention.cross_forward(lp["cross_attn"], cfg, h, enc_out)
         x = x + mlp(ln(x, lp["ln3"], cfg.norm_eps), lp["mlp"])

@@ -99,6 +99,23 @@ ATTN_CASES = [
     (4, 256, 1500, 12, 12, 64, False, 0, 0),
     (4, 1, 1500, 12, 12, 64, False, 0, 0),
     (4, 256, 256, 32, 32, 64, True, 0, 0),
+    # the paths' other shapes: zamba2's prefill; whisper's decoder in
+    # training and prefill and its prefill's cross-attention; danube,
+    # minicpm and qwen2-vl in training (a VLM client's 256 vision + 256
+    # text tokens too); the engine's eval of 16 sequences
+    (4, 512, 512, 32, 32, 64, True, 0, 0),
+    (4, 256, 256, 12, 12, 64, True, 0, 0),
+    (4, 64, 64, 12, 12, 64, True, 0, 0),
+    (4, 64, 1500, 12, 12, 64, False, 0, 0),
+    (4, 256, 256, 32, 8, 120, True, 4096, 0),
+    (4, 256, 256, 36, 36, 64, True, 0, 0),
+    (4, 256, 256, 12, 2, 128, True, 0, 0),
+    (4, 512, 512, 12, 2, 128, True, 0, 0),
+    (16, 256, 256, 28, 4, 128, True, 0, 0),
+    (16, 256, 256, 32, 32, 64, True, 0, 0),
+    (16, 256, 256, 32, 8, 120, True, 4096, 0),
+    (16, 256, 256, 36, 36, 64, True, 0, 0),
+    (16, 256, 256, 12, 2, 128, True, 0, 0),
 ]
 CE_CASES = [
     # (N, D, V, share of labels ignored)
@@ -110,6 +127,7 @@ CE_CASES = [
     # D not a multiple of the 32-deep k slice, 16-byte copies
     (129, 100, 260, 0.0),
     (1024, 2048, 32000, 0.1),           # zamba2-1.2b's head
+    (1024, 3840, 32000, 0.1),           # h2o-danube-3-4b's head
 ]
 SSD_CASES = [
     # (B, T, H, P, N, dt scale, initial state)
@@ -127,6 +145,10 @@ SSD_CASES = [
     (4, 512, 32, 64, 128, 1.0, False),  # mamba2-370m's serving prefill
     (4, 1, 32, 64, 128, 1.0, True),     # its decode step
     (4, 256, 64, 64, 64, 1.0, False),   # zamba2-1.2b's mamba layers
+    (4, 512, 64, 64, 64, 1.0, False),   # its serving prefill
+    (4, 1, 64, 64, 64, 1.0, True),      # its decode step
+    (16, 256, 32, 64, 128, 1.0, False),  # the engine's eval: mamba2-370m
+    (16, 256, 64, 64, 64, 1.0, False),  # and zamba2-1.2b
 ]
 WKV_CASES = [
     # (B, T, H, D, initial state, exp(w) overflows)
@@ -143,6 +165,7 @@ WKV_CASES = [
     (1, 33, 5, 64, True, False),
     (4, 512, 64, 64, False, False),     # rwkv6-7b's serving prefill
     (4, 1, 64, 64, True, False),        # its decode step
+    (16, 256, 64, 64, False, False),    # the engine's eval
 ]
 SCAN_TOL = 1e-4
 
@@ -266,7 +289,9 @@ def test_rwkv6_scan_decay_near_one_against_float64(cuda):
 
 
 @pytest.mark.parametrize("N,D,V", [(300, 200, 1000), (64, 96, 50288),
-                                   (333, 203, 1001), (256, 768, 51865)])
+                                   (333, 203, 1001), (256, 768, 51865),
+                                   (1024, 2304, 122753),    # minicpm-2b
+                                   (1024, 1536, 151936)])   # qwen2-vl-2b
 def test_tied_head_cross_entropy_matches_plain(cuda, N, D, V):
     """A tied head is ``embed.T``, a transposed view: the kernel reads the
     (V, D) table in place, and the gradient reaches ``embed``."""
