@@ -40,10 +40,17 @@ Phases (each fails loudly; any failure exits non-zero):
    embeddings; and one FeDepth client update of whisper-small (all 24
    units, r = 1/3's budget from ``lm_memory``, 4 x 1500 stubbed frames
    and 4 x 256 tokens: K1 on the tied head, K2 non-causal, causal and
-   cross).  Before each, a reduced model's loss on the card is held
-   against the CPU's.  The kernels' launch counts, reset just before
-   each run and read just after, must be above zero for every kernel on
-   that run's path;
+   cross); two FeDepth rounds of qwen3-moe-235b-a22b (128 experts, top
+   8, 64 / 4 heads) cut to 1 layer (of 94) over 4 clients, a cohort of 2
+   (its reckoned peak, parameters + the largest block's training + the
+   payloads held, must stay within 72 GiB, and so must the measured
+   peak, logged beside it), and one qwen3-moe client update at 2 layers,
+   2 blocks (reckoned and measured within 72 GiB too).  Before each, a
+   reduced model's loss on the card is held against the CPU's
+   (llama4-maverick's too, 4 layers: two units of a dense and a MoE
+   layer).  The kernels' launch counts,
+   reset just before each run and read just after, must be above zero
+   for every kernel on that run's path;
 5. the paper's own experiment: PreResNet-20 at its published widths on
    CIFAR-10's shape (synthetic 32 x 32 x 3 images, 10 classes, 50 000 /
    10 000), 100 clients over a balanced Dirichlet (alpha 1) split,
@@ -60,7 +67,13 @@ Phases (each fails loudly; any failure exits non-zero):
    schedulers equal in float64 (in fp32 their distance is logged beside
    two sequential runs'), round seconds, peaks and the device idle share
    of a profiled round side by side.  This path reaches none of the
-   port's kernels (convs are cuDNN's): its launch counts must read 0;
+   port's kernels (convs are cuDNN's): its launch counts must read 0.
+   Then the wire: ``codec="none"`` with the full downlink bitwise the
+   rounds without a channel, and FeDepth under ``fp16`` (sliced
+   downlink), ``qsgd_int8`` and ``topk`` (delta downlink), error
+   feedback on: each round's up bytes equal ``size_bytes`` of the
+   cohort's payloads, its down bytes the dense state per first-time
+   participant; the host seconds of encoding and decoding logged;
 6. ViT-T/16 (paper Fig. 7) at full width: loss and gradients card vs
    CPU, every ``vit_memory`` unit priced the same, Fig. 7's protocol
    (FeDepth in blocks of 4, then FedAvg x1/6; accuracies logged, the
@@ -70,7 +83,8 @@ Phases (each fails loudly; any failure exits non-zero):
 7. serving (``repro_torch.launch.serve``) of yi-6b, h2o-danube-3-4b,
    minicpm-2b, qwen2-vl-2b (256 stubbed vision embeddings, M-RoPE),
    mamba2-370m, rwkv6-7b and zamba2-1.2b at every published width and
-   depth, one after another: a timed ``LM.prefill`` of 4 x 512 tokens
+   depth, and qwen3-moe-235b-a22b at every width cut to 4 layers, one
+   after another: a timed ``LM.prefill`` of 4 x 512 tokens
    (K2, K3 or K4; zamba2 K2 and K3) and the serve loop at batch 4
    (64-token prompts walked through the cache, 32 generated tokens;
    decode attention is plain, each ssm or hybrid step runs K3 or K4 at
@@ -78,7 +92,8 @@ Phases (each fails loudly; any failure exits non-zero):
    a profiled 8-step walk's idle share and the walk against the prefill
    with bf16 and with fp32 cache leaves (logged).  Before each: the
    reduced config's decode against its prefill on the card (atol 3e-2 /
-   rtol 5e-2), and the model at every width cut to 2 layers (zamba2 to
+   rtol 5e-2; a MoE decode, whose capacity of 1 an expert drops tokens
+   the prefill keeps, against the same walk on the CPU), and the model at every width cut to 2 layers (zamba2 to
    one group), prefill on the card against the CPU (relative 1e-4) and 8
    decode steps (logged).  Then whisper-small (``serve`` refuses an
    encoder-decoder, as the reference's `serve` does): the same two
@@ -591,6 +606,18 @@ def phase_kernels():
              B=16, Hq=36, Hkv=36, D=64, seed=34, path="minicpm-2b"),
         dict(attn, name="qwen2-vl-2b eval B16 T256 Hq12 Hkv2 D128 causal",
              B=16, Hq=12, Hkv=2, seed=35, path="qwen2-vl-2b"),
+        # qwen3-moe-235b-a22b: 64 query heads over 4 KV heads (a group of
+        # 16) in training (4 x 256), its 4 x 512 serving prefill and the
+        # engine's eval of 16 test sequences
+        dict(attn, name="qwen3-moe-235b-a22b B4 T256 Hq64 Hkv4 D128 causal "
+             "(group 16)", Hq=64, Hkv=4, seed=41, timed=True, f64=True,
+             path="qwen3-moe-235b-a22b"),
+        dict(attn, name="qwen3-moe-235b-a22b prefill B4 T512 Hq64 Hkv4 D128 "
+             "causal", Tq=512, Tk=512, Hq=64, Hkv=4, seed=42, timed=True,
+             path="qwen3-moe-235b-a22b"),
+        dict(attn, name="qwen3-moe-235b-a22b eval B16 T256 Hq64 Hkv4 D128 "
+             "causal", B=16, Hq=64, Hkv=4, seed=43, timed=True,
+             path="qwen3-moe-235b-a22b"),
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
@@ -623,7 +650,13 @@ def phase_kernels():
         dict(name="qwen2-vl-2b tied head (embed.T) N1024 D1536 V151936",
              N=1024, D=1536, V=151936, ignore_every=7, tied=True,
              path="qwen2-vl-2b"),
+        dict(name="qwen3-moe-235b-a22b head N1024 D4096 V151936", N=1024,
+             D=4096, V=151936, ignore_every=7, timed=True, f64=True,
+             path="qwen3-moe-235b-a22b"),
     ]
+    for case in ce_cases:    # every path's head is timed
+        if case.get("path"):
+            case["timed"] = True
     ssd = dict(B=4, T=256, H=32, P=64, N=128)
     ssd_cases = [
         dict(ssd, name="slice B4 T256 H32 P64 N128", path="mamba2-370m"),
@@ -677,6 +710,9 @@ def phase_kernels():
         dict(wkv, name="rwkv6-7b eval B16 T256 H64 D64", B=16, seed=40,
              path="rwkv6-7b"),
     ]
+    for case in attn_cases + ssd_cases + wkv_cases:
+        if case.get("B") == 16:      # the engine's eval: timed as well
+            case["timed"] = True
     out, checked = {}, {}
     log("kernels vs plain PyTorch on the card:")
     for key, check, cases in (
@@ -833,11 +869,97 @@ def _check_run(name, loss, history, state, multi_block) -> None:
         raise AssertionError(f"{name}: non-finite server parameters")
 
 
+GIB = 2 ** 30
+RECKON_LIMIT = 72 * GIB    # a run's reckoned peak must stay below this
+
+
+def _reckon(cfg, decomps, clients: list, held: int) -> tuple:
+    """A round's reckoned peak (bytes) and how it was reckoned: the
+    parameters, the largest block's training memory (``lm_memory`` at the
+    run's batch 4 x 256 tokens with one optimizer slot: its weights'
+    private copies, gradients and momentum, activations) and ``held``
+    payloads of a whole model (the engine keeps each cohort payload until
+    ``aggregate``)."""
+    from repro_torch.core.memory_model import lm_memory
+    mem = lm_memory(cfg, 4, 256)
+    params = 4 * cfg.param_count()
+    block = max(mem.block_train_bytes(lo, hi, optimizer_slots=1)
+                for k in clients for lo, hi in decomps[k].blocks)
+    train = params + block + held * params
+    merge = (held + 3) * params      # the state, every payload, the sum
+    return max(train, merge), (
+        f"the larger of {params / GIB:.2f} GiB parameters + "
+        f"{block / GIB:.2f} GiB the largest block's training + {held} held "
+        f"payloads of {params / GIB:.2f} GiB, and the aggregate's "
+        f"{held + 3} models")
+
+
+def _reckon_client(cfg, blocks: tuple, n_batches: int) -> tuple:
+    """A client update's reckoned peak (bytes), how it was reckoned, and
+    each block's: the parameters, the block's training memory
+    (``lm_memory`` at batch 4 x 256 with one optimizer slot: its
+    weights' private copies, gradients and momentum, activations and the
+    ``n_batches`` buffered prefix outputs) and the copies the blocks
+    before it trained and kept (their units, and the embed when the
+    first block starts at 0; the head is trained in place from block to
+    block, so it is counted once, in the block's training)."""
+    from repro_torch.core.memory_model import lm_memory
+    mem = lm_memory(cfg, 4, 256)
+    params = mem.param_bytes()
+    per_block = []
+    for j, (lo, hi) in enumerate(blocks):
+        kept = sum(mem.units[k].params for a, b in blocks[:j]
+                   for k in range(a, b))
+        if j and blocks[0][0] == 0:
+            kept += mem.embed.params
+        per_block.append(params + kept + mem.block_train_bytes(
+            lo, hi, optimizer_slots=1, n_batches=n_batches))
+    return max(per_block), (
+        f"{params / GIB:.2f} GiB parameters + the block's training + the "
+        f"earlier blocks' trained copies; by block "
+        f"{[round(b / GIB, 2) for b in per_block]} GiB"), per_block
+
+
+def _step_memory():
+    """Wrap ``blockwise.sgd_momentum_`` so that each SGD step records the
+    bytes allocated at its entry and the run's peak so far at its end
+    (``max_memory_allocated``, not reset); returns the records and a
+    function that undoes the wrap."""
+    import torch
+    from repro_torch.core import blockwise
+    inner, records = blockwise.sgd_momentum_, []
+
+    def recorded(*args, **kwargs):
+        torch.cuda.synchronize()
+        entry = torch.cuda.memory_allocated()
+        inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        records.append((entry, torch.cuda.max_memory_allocated()))
+
+    def restore():
+        blockwise.sgd_momentum_ = inner
+
+    blockwise.sgd_momentum_ = recorded
+    return records, restore
+
+
+def _held_to_reckoning(name: str, peak: int, reckoned: int,
+                       gate: bool = True) -> None:
+    """Log a run's measured peak (``max_memory_allocated``) beside its
+    reckoning; with ``gate``, fail when the peak is over RECKON_LIMIT."""
+    log(f"{name}: peak {peak / GIB:.2f} GiB, reckoned {reckoned / GIB:.2f} "
+        f"GiB, measured - reckoned {(peak - reckoned) / GIB:+.2f} GiB")
+    if gate and peak > RECKON_LIMIT:
+        raise AssertionError(f"{name}: measured peak {peak / GIB:.2f} GiB "
+                             f"over {RECKON_LIMIT / GIB:.0f} GiB")
+
+
 def phase_path(arch: str, layers: int, kernels: tuple,
-               method: str = "fedepth") -> dict:
+               method: str = "fedepth", clients: int = 6) -> dict:
     """Two rounds of ``method`` (``fedepth``, ``m-fedepth`` or
     ``depthfl``) on ``arch`` at every published width with ``layers``
-    layers; returns this run's launch counts and its launches by shape."""
+    layers over ``clients`` clients; returns this run's launch counts and
+    its launches by shape."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.decomposition import schedule_summary
@@ -860,7 +982,7 @@ def phase_path(arch: str, layers: int, kernels: tuple,
     sim = SimConfig(rounds=2, participation=1.0 if method == "depthfl"
                     else 0.5, lr=0.05, momentum=0.9, local_steps=1,
                     batch_size=4, scenario="fair", seed=0)
-    data = build_seq_data(6, n_per_client=16, n_test=16,
+    data = build_seq_data(clients, n_per_client=16, n_test=16,
                           vocab_size=cfg.vocab_size, seq_len=256, seed=0)
     ctx = build_lm_context(data, sim, cfg)
     engine = RoundEngine(get_strategy(method), ctx)
@@ -869,6 +991,15 @@ def phase_path(arch: str, layers: int, kernels: tuple,
         for cid, dec in enumerate(ctx.decomps):
             log(f"client {cid} (r={ctx.ratios[cid]:.3f}): "
                 + schedule_summary(dec, ctx.mem).replace("\n", " |"))
+        cohort = max(1, int(sim.participation * clients))
+        reckoned, how = _reckon(cfg, ctx.decomps, range(clients),
+                                cohort - 1)
+        log(f"reckoned peak {reckoned / GIB:.2f} GiB ({how}; cohort "
+            f"{cohort} of {clients})")
+        if cfg.family == "moe" and reckoned > RECKON_LIMIT:
+            raise AssertionError(f"{name}: reckoned peak "
+                                 f"{reckoned / GIB:.2f} GiB over "
+                                 f"{RECKON_LIMIT / GIB:.0f} GiB")
     cohorts, peaks = _instrument(engine)
     state, history, launches, wall, shapes = _run_counted(engine)
     with torch.no_grad():
@@ -889,10 +1020,15 @@ def phase_path(arch: str, layers: int, kernels: tuple,
             f"{rec.down_bytes}  max_memory_allocated "
             f"{peak / 2**30:.2f} GiB")
     log(f"path {name}: 2 rounds in {wall:.1f} s, launches {launches}")
+    if blockwise:
+        _held_to_reckoning(name, max(peaks), reckoned,
+                           gate=cfg.family == "moe")
     clients = [k for ids in cohorts for k in ids]
+    # a model of one depth unit (qwen3-moe cut to 1 layer) has one block
+    multi = blockwise and build(cfg).num_depth_units > 1
     _check_run(name, loss, history, state,
                any(len(ctx.decomps[k].blocks) >= 2 for k in clients)
-               if blockwise else None)
+               if multi else None)
     if method == "m-fedepth" and not bool(
             (state["aux_norms"][:-1] != 1).any()):
         raise AssertionError(f"{name}: no intermediate aux norm trained")
@@ -958,12 +1094,13 @@ def _attention_modes(shapes: dict) -> dict:
 
 
 def _lm_client_update(name: str, lm, params, dec, batches,
-                      kernels: tuple) -> dict:
+                      kernels: tuple, reckoned: int = None) -> dict:
     """One FeDepth ``client_update`` of ``lm`` on the card (``lr`` 0.05,
     momentum 0.9, the prefix cache on), its launch counts and K2's modes
     read from that call alone; checks finite, moved parameters and the
-    ``kernels`` launched; returns the launches and the launches by
-    shape."""
+    ``kernels`` launched, and, given its ``reckoned`` peak, that the
+    measured one is within RECKON_LIMIT; returns the launches and the
+    launches by shape."""
     import torch
     from repro_torch.core import blockwise
     from repro_torch.tree import tree_leaves
@@ -984,6 +1121,8 @@ def _lm_client_update(name: str, lm, params, dec, batches,
         f"{secs:.2f} s, peak {peak / 2**30:.2f} GiB, loss on batch 0 "
         f"{before:.4f} -> {after:.4f}, {moved} leaves moved, launches "
         f"{launches}, K2 calls by mode {modes}")
+    if reckoned is not None:
+        _held_to_reckoning(f"  {name}", peak, reckoned)
     finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(out))
     missing = [k for k in kernels if launches[k] <= 0]
     if not (finite and math.isfinite(after) and moved and not missing):
@@ -1018,6 +1157,63 @@ def phase_vlm_client(device="cuda") -> dict:
         Decomposition(((0, 1), (1, 3), (3, 4)), 0, 0), batches,
         ("chunked_cross_entropy", "flash_attention"))
     del params, batches
+    torch.cuda.empty_cache()
+    return run
+
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+
+
+def phase_moe_client(device="cuda") -> dict:
+    """One FeDepth client update of qwen3-moe-235b-a22b at every published
+    width and 2 layers (of 94) over 4 x 256 tokens, 2 batches, blocks
+    [0, 1), [1, 2): the hand-off from one MoE block to the next.  Its
+    peak is reckoned (``_reckon_client``) and measured, each within
+    RECKON_LIMIT.  Before it, llama4-maverick's reduced loss and
+    gradients (4 layers: two units of a dense and a MoE layer) and its
+    reduced decode walk, card vs CPU (qwen3-moe's run in its path and
+    its serving)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.decomposition import Decomposition
+    from repro_torch.models import build
+    check_reduced_on_card("llama4-maverick-400b-a17b")
+    check_serving_reduced("llama4-maverick-400b-a17b", device)
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=2)
+    blocks, n_batches = ((0, 1), (1, 2)), 2
+    reckoned, how, per_block = _reckon_client(cfg, blocks, n_batches)
+    log(f"  {MOE_ARCH} client update: reckoned peak {reckoned / GIB:.2f} "
+        f"GiB ({how})")
+    if reckoned > RECKON_LIMIT:
+        raise AssertionError(f"{MOE_ARCH}: client update reckoned "
+                             f"{reckoned / GIB:.2f} GiB over "
+                             f"{RECKON_LIMIT / GIB:.0f} GiB")
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(44)
+    batches = []
+    for _ in range(n_batches):
+        toks = torch.randint(0, cfg.vocab_size, (4, 257), generator=gen,
+                             device=device)
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    records, restore = _step_memory()
+    try:
+        run = _lm_client_update(
+            f"{MOE_ARCH} client update, 2 layers (cut from "
+            f"{full.num_layers})", lm, params, Decomposition(blocks, 0, 0),
+            batches, ("chunked_cross_entropy", "flash_attention"), reckoned)
+    finally:
+        restore()
+    # the steps run block by block, one per batch
+    for i, (entry, peak) in enumerate(records):
+        j = i // n_batches
+        log(f"    block {blocks[j]} step {i % n_batches + 1}: "
+            f"{entry / GIB:.2f} GiB allocated at entry, peak so far "
+            f"{peak / GIB:.2f} GiB; the block reckoned "
+            f"{per_block[j] / GIB:.2f} GiB")
+    del params, batches
+    gc.collect()
     torch.cuda.empty_cache()
     return run
 
@@ -1192,10 +1388,11 @@ def _client_work(method: str, ctx, strategy, k: int, trained) -> str:
     return f"the {strategy.sub_cfg.name} subnet"
 
 
-def _image_engine(data, method: str, scenario: str, scheduler: str):
+def _image_engine(data, method: str, scenario: str, scheduler: str,
+                  **engine_kw):
     """The ``RoundEngine`` of a phase-5 run: 2 rounds of ``method`` under
     ``scenario`` on full-width PreResNet-20 with the ``scheduler`` (the
-    vectorized one with ``min_group=1``)."""
+    vectorized one with ``min_group=1``) and ``engine_kw`` (the wire)."""
     from repro_torch.configs.preresnet20 import CONFIG
     from repro_torch.fl.engine import RoundEngine, SimConfig, build_context
     from repro_torch.fl.registry import get_strategy
@@ -1206,7 +1403,7 @@ def _image_engine(data, method: str, scenario: str, scheduler: str):
                        build_context(data, sim, model_cfg=CONFIG),
                        scheduler=(VectorizedScheduler(min_group=1)
                                   if scheduler == "vectorized"
-                                  else scheduler))
+                                  else scheduler), **engine_kw)
 
 
 def _final_state(data, method: str, scheduler: str, dtype):
@@ -1380,7 +1577,148 @@ def log_idle_share(name: str, engine, state, rd: int) -> None:
         f"{1 - busy / wall:.4f}")
 
 
-def phase_images() -> None:
+COMM_RUNS = (("fp16", "sliced"), ("qsgd_int8", "delta"), ("topk", "delta"))
+
+
+def _comm_run(data, codec: str, downlink: str) -> None:
+    """Two FeDepth rounds (``fair``) on full-width PreResNet-20 under
+    ``codec`` (error feedback on) and ``downlink``: each round's up bytes
+    equal the cohort's ``size_bytes`` of the whole model (a FeDepth
+    payload is the whole model, delta-coded), its down bytes the sliced
+    state per client (delta: a first-time participant's, at most that for
+    a repeat one); logs the host seconds of encoding and decoding a
+    round.  No kernel launches."""
+    from repro_torch.fl.comm import get_codec
+    from repro_torch.tree import tree_bytes
+    name = f"fedepth (fair) codec {codec}, downlink {downlink}"
+    engine = _image_engine(data, "fedepth", "fair", "sequential",
+                           codec=codec, downlink=downlink)
+    chan = engine.channel
+    host = [0.0, 0.0]
+
+    def timed(i, fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            host[i] += time.perf_counter() - t0
+            return out
+        return call
+
+    chan.encode_result = timed(0, chan.encode_result)
+    chan.decode_result = timed(1, chan.decode_result)
+    per_round = []
+    run_round = engine.run_round
+
+    def round_with_host(state, rd, batch_fn):
+        host[:] = [0.0, 0.0]
+        out = run_round(state, rd, batch_fn)
+        per_round.append(tuple(host))
+        return out
+
+    engine.run_round = round_with_host
+    cohorts, peaks = _instrument(engine)
+    state, history, launches, wall, _ = _run_counted(engine)
+    loss = _image_loss("fedepth", engine.strategy, state, data.x_test[:512],
+                       data.y_test[:512])
+    size = get_codec(codec).size_bytes(state)
+    dense = tree_bytes(state)
+    seen, bad = set(), []
+    for rec, ids, (enc_s, dec_s), peak in zip(history, cohorts, per_round,
+                                              peaks):
+        repeats = [k for k in ids if k in seen]
+        seen.update(ids)
+        up_want = len(ids) * size
+        down_full = len(ids) * dense
+        log(f"  {name} round {rec.round}: cohort {ids}, up bytes "
+            f"{rec.comm_bytes} (size_bytes x {len(ids)} = {up_want}), down "
+            f"bytes {rec.down_bytes} (dense x {len(ids)} = {down_full}; "
+            f"repeat participants {repeats}), encode {enc_s:.3f} s + decode "
+            f"{dec_s:.3f} s on the host, round {rec.seconds:.2f} s, "
+            f"accuracy {rec.accuracy}, peak {peak / GIB:.3f} GiB")
+        if rec.comm_bytes != up_want:
+            bad.append(f"round {rec.round} up bytes")
+        exact = downlink == "sliced" or not repeats
+        if (rec.down_bytes != down_full) if exact \
+                else not 0 < rec.down_bytes <= down_full:
+            bad.append(f"round {rec.round} down bytes")
+    log(f"  {name}: raw payload {dense} bytes, on the wire {size} "
+        f"(x{dense / size:.2f}), test loss {loss:.4f}, 2 rounds in "
+        f"{wall:.1f} s, launches {launches}")
+    _check_run(name, loss, history, state, None)
+    launched = {k: n for k, n in launches.items() if n}
+    if bad or launched:
+        raise AssertionError(f"{name}: {bad}, launched {launched}")
+    del engine
+    gc.collect()
+
+
+def check_none_codec_bitwise(data) -> None:
+    """``codec="none"`` with ``downlink="full"`` on the card: two FeDepth
+    rounds through the engine equal, bitwise, the same rounds with no
+    channel (sample, the scheduler's updates, raw bytes, aggregate)."""
+    import torch
+    # cuDNN's default convolution backward accumulates with atomics: two
+    # identical runs differ in the last bits.  Deterministic algorithms
+    # for this check; a second channel-free run is the control.
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        got = [_none_rounds(data, channel)
+               for channel in (True, False, False)]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    (b1, s1), (b2, s2), (b3, s3) = got
+    control = b2 == b3 and all(torch.equal(a, b) for a, b in zip(s2, s3))
+    same = b1 == b2 and all(torch.equal(a, b) for a, b in zip(s1, s2))
+    log(f"  fedepth (fair) codec none, downlink full: bytes {b1} vs the "
+        f"channel-free rounds' {b2}, states bitwise equal {same} "
+        f"(deterministic cuDNN; two channel-free runs equal: {control}) "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("codec none: the engine differs from the "
+                             "channel-free rounds")
+    gc.collect()
+
+
+def _none_rounds(data, channel: bool):
+    """Two FeDepth rounds with the engine's ``codec="none"`` channel, or
+    without any channel: ([(up, down) a round], the final leaves)."""
+    from repro_torch.fl.strategy import wire_bytes
+    from repro_torch.tree import tree_leaves
+    engine = _image_engine(data, "fedepth", "fair", "sequential")
+    ctx, strategy = engine.ctx, engine.strategy
+    strategy.setup(ctx)
+    state = strategy.init_state(ctx)
+    batch_fn = engine.default_batch_fn()
+    log_ = []
+    for rd in range(2):
+        if channel:
+            state, up, down = engine.run_round(state, rd, batch_fn)
+        else:
+            cohort = engine.sampler.sample(ctx, rd)
+            down = len(cohort) * wire_bytes(state)
+            results = engine.scheduler.run(ctx, strategy, state, cohort,
+                                           batch_fn)
+            up = sum(wire_bytes(r.payload) for r in results)
+            state = strategy.aggregate(ctx, state, results)
+        log_.append((up, down))
+    return log_, tree_leaves(state)
+
+
+def phase_comm(data) -> None:
+    """The wire layer on the paper's experiment (full-width PreResNet-20,
+    100 clients): ``codec="none"`` bitwise the channel-free engine, then
+    the lossy codecs and the sliced / delta downlinks (``COMM_RUNS``)."""
+    log("wire codecs: FeDepth on PreResNet-20, 2 rounds each")
+    check_none_codec_bitwise(data)
+    for codec, downlink in COMM_RUNS:
+        _comm_run(data, codec, downlink)
+
+
+def phase_images():
+    """Phase 5; returns the synthetic CIFAR-10-shaped data for the comm
+    phase."""
     from repro_torch.fl.data import build_federated
     log("paper experiment: PreResNet-20 on CIFAR-10's shape")
     check_resnet20_on_card()
@@ -1400,6 +1738,7 @@ def phase_images() -> None:
             check_same_run(method, runs.pop(method), out, data)
         elif method in vectorized and scenario == "fair":
             runs[method] = out
+    return data
 
 
 # --------------------------------------------------------------- phase 6
@@ -1650,7 +1989,11 @@ SERVE_RUNS = (
     ("mamba2-370m", ("mamba2_scan",), "mamba2_scan"),
     ("rwkv6-7b", ("rwkv6_scan",), "rwkv6_scan"),
     ("zamba2-1.2b", ("flash_attention", "mamba2_scan"), "mamba2_scan"),
+    ("qwen3-moe-235b-a22b", ("flash_attention",), None),
 )
+# depth cuts of the serving runs: qwen3-moe's 94 layers are 233 GB in
+# fp32; 4 layers (44.8 GB) fit the card beside the prefill
+SERVE_LAYERS = {"qwen3-moe-235b-a22b": 4}
 SERVE_BATCH = 4
 PREFILL_TOKENS = 512         # the timed prefill: batch 4 x 512 tokens
 SERVE_PROMPT, SERVE_GEN = 64, 32   # the serve loop: 64-token prompts, 32 new
@@ -1694,10 +2037,15 @@ def _walk(lm, params, toks, dtype=None):
 def check_serving_reduced(arch: str, device="cuda") -> None:
     """The reduced config on the card: the decode walk's logits after the
     last prompt token against ``prefill``'s, within the reference's atol
-    3e-2 / rtol 5e-2 (the bf16 caches bound the agreement)."""
+    3e-2 / rtol 5e-2 (the bf16 caches bound the agreement).  A MoE
+    decode routes with a capacity of 1 an expert at batch 2 and drops
+    tokens the prefill keeps (the reference's behaviour: ROADMAP §3
+    fault 14), so there the walk is held to the same walk on the CPU
+    instead (relative 1e-4), and its distance from prefill is logged."""
     import torch
     from repro_torch.configs import get_reduced_config
     from repro_torch.models import build
+    from repro_torch.tree import tree_map
     cfg = get_reduced_config(arch)
     lm = build(cfg)
     params = lm.init(0, device=device)
@@ -1706,6 +2054,18 @@ def check_serving_reduced(arch: str, device="cuda") -> None:
                          device=device)
     dec = _walk(lm, params, toks)[-1]
     pf = lm.prefill(params, {"tokens": toks})
+    if cfg.family == "moe":
+        cpu = _walk(lm, tree_map(lambda t: t.cpu(), params), toks.cpu())[-1]
+        rel = _rel(dec.cpu(), cpu)
+        ok = math.isfinite(rel) and rel <= LOSS_RTOL
+        log(f"  {arch} reduced: decode walk card vs cpu rel err {rel:.3e} "
+            f"(tol {LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}; decode vs "
+            f"prefill max_abs_err {float((dec - pf).abs().max()):.3e} "
+            f"(capacity 1 an expert at decode; logged)")
+        if not ok:
+            raise AssertionError(f"{arch} reduced: decode on the card and "
+                                 f"the CPU disagree ({rel})")
+        return
     err = float((dec - pf).abs().max())
     ok = bool(((dec - pf).abs() <= DECODE_ATOL + DECODE_RTOL * pf.abs()).all())
     log(f"  {arch} reduced on the card: decode vs prefill max_abs_err "
@@ -1796,13 +2156,23 @@ def _bounds(cfg, params, B: int, T: int, P: int, gen: int):
     n = sum(t.numel() for t in tree_leaves(params))
     head = cfg.d_model * cfg.vocab_size
     touched = n if cfg.tie_embeddings else n - head   # drop an untied embed
+    if cfg.family == "moe":
+        # a token multiplies only its top-k experts (k of E); the bytes
+        # below still read every expert once, as a prefill of 2048 tokens
+        # reaches them all
+        n_moe = sum(k == "moe" for k in cfg.layer_kinds())
+        idle = (cfg.num_experts - cfg.experts_per_token) * 3 \
+            * cfg.d_model * cfg.moe_d_ff * n_moe
+        touched_flops = touched - idle
+    else:
+        touched_flops = touched
     t_all = T + (cfg.frontend_embed_tokens if cfg.family == "vlm" else 0)
     n_attn = (cfg.num_layers // cfg.hybrid_attn_every
               if cfg.family == "hybrid" else cfg.num_layers)
     per_pair = 4.0 * cfg.head_dim * cfg.num_heads * n_attn * B
     window = cfg.sliding_window or t_all
     pairs = sum(min(i + 1, window) for i in range(t_all))
-    pf = bound_ms(2.0 * B * t_all * (touched - head) + 2.0 * B * head
+    pf = bound_ms(2.0 * B * t_all * (touched_flops - head) + 2.0 * B * head
                   + per_pair * pairs,
                   4.0 * (touched + B * t_all * cfg.d_model))
     cache_bytes, attn = 0.0, 0.0
@@ -1815,13 +2185,20 @@ def _bounds(cfg, params, B: int, T: int, P: int, gen: int):
             attn += per_pair * valid / 2    # q.k for "k", p.v for "v"
         else:
             cache_bytes += 2 * size
-    dec = bound_ms(2.0 * B * touched + attn,
-                   4.0 * (touched + B * cfg.d_model) + cache_bytes)
+    # a decode step reads the weights its B tokens need: a MoE layer only
+    # the experts they route to (at most B * k of E)
+    read = touched
+    if cfg.family == "moe":
+        used = min(cfg.num_experts, B * cfg.experts_per_token)
+        read = touched - (cfg.num_experts - used) * 3 * cfg.d_model \
+            * cfg.moe_d_ff * n_moe
+    dec = bound_ms(2.0 * B * touched_flops + attn,
+                   4.0 * (read + B * cfg.d_model) + cache_bytes)
     return pf, dec
 
 
 def phase_serve_model(arch: str, prefill_kernels: tuple, decode_kernel,
-                      device="cuda") -> dict:
+                      device="cuda", layers=None) -> dict:
     """Serve ``arch`` at every published width and depth on the card:
     seeded init, one timed ``LM.prefill`` of 4 x 512 tokens (a VLM's
     256 vision embeddings and M-RoPE positions too) after an untimed
@@ -1836,7 +2213,10 @@ def phase_serve_model(arch: str, prefill_kernels: tuple, decode_kernel,
     from repro_torch.launch.serve import serve
     from repro_torch.models import build
     from repro_torch.tree import tree_bytes
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers) if layers else full
+    depth = (f"(cut from {full.num_layers})"
+             if cfg.num_layers < full.num_layers else "(all)")
     check_serving_reduced(arch, device)
     check_serving_two_layers(arch, device)
     torch.cuda.empty_cache()
@@ -1875,7 +2255,7 @@ def phase_serve_model(arch: str, prefill_kernels: tuple, decode_kernel,
     step_ms = res.decode_seconds / SERVE_GEN * 1e3
     (pf_b, pf_by, _), (dec_b, dec_by, _) = _bounds(
         cfg, params, B, T, SERVE_PROMPT, SERVE_GEN)
-    log(f"serve {arch}: d_model {cfg.d_model} layers {cfg.num_layers} (all) "
+    log(f"serve {arch}: d_model {cfg.d_model} layers {cfg.num_layers} {depth} "
         f"vocab {cfg.vocab_size} tied {cfg.tie_embeddings}, "
         f"{cfg.param_count() / 1e9:.3f} B params, {pbytes / 1e9:.2f} GB "
         f"fp32, init {init_s:.2f} s")
@@ -2110,7 +2490,8 @@ def phase_serve_whisper(device="cuda") -> dict:
 
 def phase_serving() -> dict:
     log("serving: every published width and depth, batch 4")
-    runs = {arch: phase_serve_model(arch, pk, dk)
+    runs = {arch: phase_serve_model(arch, pk, dk,
+                                    layers=SERVE_LAYERS.get(arch))
             for arch, pk, dk in SERVE_RUNS}
     runs["whisper-small"] = phase_serve_whisper()
     return runs
@@ -2129,6 +2510,9 @@ PATHS = (
     ("h2o-danube-3-4b", 4, K1_K2, "fedepth"),
     ("minicpm-2b", 4, K1_K2, "fedepth"),
     ("qwen2-vl-2b", 4, K1_K2, "fedepth"),
+    # (..., clients): qwen3-moe at 1 layer (14.9 GB), 4 clients, a cohort
+    # of 2, within RECKON_LIMIT
+    ("qwen3-moe-235b-a22b", 1, K1_K2, "fedepth", 4),
 )
 
 
@@ -2197,13 +2581,15 @@ def main() -> int:
     phase_build()
     numbers, checked = phase_kernels()
     by_run = {}
-    for arch, layers, path_kernels, method in PATHS:
-        by_run[arch, method] = phase_path(arch, layers, path_kernels, method)
+    for arch, layers, path_kernels, method, *clients in PATHS:
+        by_run[arch, method] = phase_path(arch, layers, path_kernels, method,
+                                          *clients)
     by_run["qwen2-vl-2b", "client update, vision prefix"] = \
         phase_vlm_client()
     by_run["whisper-small", "fedepth client update"] = \
         phase_whisper_client()
-    phase_images()
+    by_run[MOE_ARCH, "fedepth client update"] = phase_moe_client()
+    phase_comm(phase_images())
     phase_vit()
     for arch, runs in phase_serving().items():
         for stage, run in runs.items():

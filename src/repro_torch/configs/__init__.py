@@ -8,13 +8,16 @@ layers, d_model 128 or 144), both identical to the reference's.  Ported: the den
 stubbed vision prefix), the attention-free ``mamba2-370m`` and
 ``rwkv6-7b``, the hybrid ``zamba2-1.2b`` (mamba2 layers and one shared
 attention block) and the encoder-decoder ``whisper-small`` (a stubbed
-audio frontend).  The reference's MoE architectures (``NOT_PORTED``)
-raise ``NotImplementedError``.
+audio frontend) and the MoE ``qwen3-moe-235b-a22b`` (128 experts, top 8)
+and ``llama4-maverick-400b-a17b`` (a dense and a MoE layer per unit, top 1
+and a shared expert).  Every architecture of the reference is ported:
+``NOT_PORTED`` is empty.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (h2o_danube3_4b, mamba2_370m, minicpm_2b,
-                                 qwen2_7b, qwen2_vl_2b, rwkv6_7b,
+from repro_torch.configs import (h2o_danube3_4b, llama4_maverick_400b_a17b,
+                                 mamba2_370m, minicpm_2b, qwen2_7b,
+                                 qwen2_vl_2b, qwen3_moe_235b_a22b, rwkv6_7b,
                                  whisper_small, yi_6b, zamba2_1_2b)
 from repro_torch.configs.base import (SHAPE_BY_NAME, SHAPES, InputShape,
                                       ModelConfig)
@@ -29,12 +32,14 @@ _MODULES = {
     "h2o-danube-3-4b": h2o_danube3_4b,
     "zamba2-1.2b": zamba2_1_2b,
     "whisper-small": whisper_small,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
+    "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
 }
 
 ARCH_IDS = tuple(_MODULES)
 
-# the reference's architectures that wait for a later slice
-NOT_PORTED = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+# the reference's architectures not ported: none
+NOT_PORTED: tuple = ()
 
 
 def get_config(arch_id: str) -> ModelConfig:

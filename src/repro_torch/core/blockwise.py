@@ -21,7 +21,7 @@ Two head strategies (paper §Methodology), on the ResNet runner:
 the shared classifier) and ``head="aux"`` (m-FeDepth: a tiny auxiliary
 classifier per block exit; the final block trains the real head).  The
 ViT runner (paper Fig. 7) takes ``"skip"``: the CLS token into the
-shared head.  The LM runner covers every ported family (dense, vlm,
+shared head.  The LM runner covers every ported family (dense, moe, vlm,
 ssm, hybrid, and whisper through :func:`_whisper_runner`, whose z is an
 ``{"enc", "dec"}`` pair) with ``"skip"`` and, except whisper, ``"aux"``
 (m-FeDepth: per-block rms-norm scales ``aux_norms`` into the shared
@@ -73,7 +73,8 @@ class BlockRunner:
 
 def lm_runner(lm, head: str = "skip") -> BlockRunner:
     """Runner over an ``LM`` (``repro_torch.models``) of any ported
-    family.  The depth units live under ``params["units"]`` (dense, vlm),
+    family.  The depth units live under ``params["units"]`` (dense, moe,
+    vlm),
     ``params["layers"]`` (ssm) or ``params["mamba_groups"]`` (hybrid: one
     unit a group); whisper takes :func:`_whisper_runner`.
 
@@ -90,10 +91,10 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
     cfg = lm.cfg
     if cfg.is_encoder_decoder:
         return _whisper_runner(lm)
-    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.family!r} runner is not ported yet")
-    layers_key = {"dense": "units", "vlm": "units", "ssm": "layers",
-                  "hybrid": "mamba_groups"}[cfg.family]
+    layers_key = {"dense": "units", "moe": "units", "vlm": "units",
+                  "ssm": "layers", "hybrid": "mamba_groups"}[cfg.family]
     head_keys = {"final_norm", "lm_head", "aux_norms"}
     if cfg.family == "hybrid":
         head_keys |= {"shared", "invocation_norms"}
@@ -101,13 +102,15 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
         head_keys |= {"embed"}
 
     def embed(params, batch):
-        if cfg.family in ("dense", "vlm"):
+        if cfg.family in ("dense", "moe", "vlm"):
             return transformer.embed_inputs(
                 params, cfg, batch["tokens"],
                 vision_embeds=batch.get("vision_embeds"))
         return params["embed"][batch["tokens"]]
 
     def apply_units(params, z, lo, hi):
+        # the MoE router's aux loss is dropped, as in the reference's
+        # runner: a block's subproblem trains on the head's CE alone
         out, _aux = lm.apply_range(params, z, lo, hi)
         return out
 
@@ -332,15 +335,20 @@ def sgd_momentum_(loss_fn: Callable[[], torch.Tensor], params, vel, *,
     for t in leaves:
         t.requires_grad_(True)
     try:
-        grads = torch.autograd.grad(loss_fn(), leaves, allow_unused=True)
+        grads = list(torch.autograd.grad(loss_fn(), leaves,
+                                         allow_unused=True))
     finally:
         for t in leaves:
             t.requires_grad_(False)
     with torch.no_grad():
-        for t, v, g in zip(leaves, tree_leaves(vel), grads):
+        for i, (t, v) in enumerate(zip(leaves, tree_leaves(vel))):
+            # each gradient is released once applied, so that the step's
+            # ``lr * v`` temporary reuses its memory
+            g, grads[i] = grads[i], None
             v.mul_(momentum)
             if g is not None:
                 v.add_(g)
+            del g
             t.sub_(lr * v)
 
 
@@ -461,6 +469,10 @@ class PrefixCache:
                    for t in tree_leaves(self.zs))
 
 
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
 def client_update(runner: BlockRunner, params, dec: Decomposition, batches,
                   *, lr: float = 0.1, momentum: float = 0.9,
                   local_steps: int = 1, prox_mu: float = 0.0,
@@ -482,12 +494,23 @@ def client_update(runner: BlockRunner, params, dec: Decomposition, batches,
         cache.reset()
     elif prefix_cache:
         cache = PrefixCache(runner)
+    # The caller's storages are never written.  A leaf that an earlier
+    # block trained (the head, every block's) is the client's own copy;
+    # with the prefix buffered before the block's steps and no FedProx
+    # anchor, nothing reads its old value again, so the block trains it
+    # in place rather than holding a second copy.
+    given = {_storage(t) for t in tree_leaves(params)}
+    in_place = cache is not None and prox_mu == 0
+
+    def private(t):
+        t = t.detach()
+        return t if in_place and _storage(t) not in given else t.clone()
 
     for j, (lo, hi) in enumerate(dec.blocks):
         zs = cache.prepare(params, batches, lo) if cache is not None \
             else None
         anchor = runner.split(params, lo, hi)
-        train = tree_map(lambda t: t.detach().clone(), anchor)
+        train = tree_map(private, anchor)
         vel = tree_map(torch.zeros_like, train)
         if cache is not None:
             step = make_buffered_block_step(runner, lo, hi, j, lr=lr,

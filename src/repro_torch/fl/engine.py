@@ -10,10 +10,12 @@ r uniformly distributed over the scenario's tuple (``SCENARIOS``; the
 full protocol is ``docs/budget_protocol.md``).  :func:`build_context`
 prepares the paper's image protocol; ``fl/seq.py`` the LM one.
 
-The engine runs the sequential (default) or the vectorized scheduler
-with ``codec="none"``, ``downlink="full"``, no faults, no checkpoints and
-no telemetry.  The reference's other knobs are accepted by name and
-raise ``NotImplementedError`` when set — never silently ignored.
+The engine runs the sequential (default) or the vectorized scheduler,
+and routes every uplink and downlink byte through a
+:class:`~repro_torch.fl.comm.CommChannel` (``codec`` / ``downlink``);
+no faults, no checkpoints and no telemetry.  The reference's other knobs
+are accepted by name and raise ``NotImplementedError`` when set — never
+silently ignored.
 """
 from __future__ import annotations
 
@@ -28,10 +30,10 @@ from repro_torch.configs.preresnet20 import ResNetConfig
 from repro_torch.core.decomposition import decompose, width_equivalent_budget
 from repro_torch.core.memory_model import resnet_memory
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.fl.comm import CommChannel
 from repro_torch.fl.sampling import (CohortSampler, UniformSampler,
                                      make_scheduler)
 from repro_torch.fl.strategy import Context, FLStrategy, wire_bytes
-from repro_torch.tree import tree_bytes
 
 SCENARIOS: Dict[str, Tuple[float, ...]] = {
     "fair": (1 / 6, 1 / 3, 1 / 2, 1.0),
@@ -149,7 +151,7 @@ def _resolve_prefix_cache(spec) -> bool:
 
 # the reference engine's other knobs; each is off at None (obs also at
 # "off" / False), and only checkpoint_keep is harmless on its own
-_UNPORTED = ("channel", "history_sink", "obs", "faults", "resilience",
+_UNPORTED = ("history_sink", "obs", "faults", "resilience",
              "checkpoint_every", "checkpoint_dir", "resume")
 
 
@@ -160,19 +162,19 @@ class RoundEngine:
     def __init__(self, strategy: FLStrategy, ctx: Context, *,
                  sampler: Optional[CohortSampler] = None,
                  scheduler=None, prefix_cache="on", codec="none",
-                 downlink: str = "full", **unported):
+                 downlink: str = "full",
+                 channel: Optional[CommChannel] = None, **unported):
         """``prefix_cache`` ("on" / "off") and ``scheduler`` (a name of
         ``fl.sampling.SCHEDULERS`` or an instance; sequential by default)
-        as in the reference.  ``codec="none"`` and ``downlink="full"`` are
-        the only ported wire settings; the reference's other knobs
-        (``channel``, ``history_sink``, ``obs``, ``faults``,
-        ``resilience``, ``checkpoint_*``, ``resume``) raise
+        as in the reference.  ``codec`` (a name of ``fl.comm.CODECS`` or
+        a configured codec) and ``downlink`` ("full", "sliced" or
+        "delta") configure the wire: lossy codecs run behind per-client
+        error feedback and the history counts the exact encoded bytes;
+        ``codec="none"`` with ``downlink="full"`` is the channel-free
+        engine exactly.  A prebuilt ``channel`` wins over the two knobs.
+        The reference's other knobs (``history_sink``, ``obs``,
+        ``faults``, ``resilience``, ``checkpoint_*``, ``resume``) raise
         ``NotImplementedError`` when set."""
-        if codec not in (None, "none"):
-            raise NotImplementedError(f"codec {codec!r} is not ported yet")
-        if downlink != "full":
-            raise NotImplementedError(
-                f"downlink {downlink!r} is not ported yet (full)")
         for name, value in unported.items():
             if name not in _UNPORTED + ("checkpoint_keep",):
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -184,33 +186,28 @@ class RoundEngine:
             else dataclasses.replace(ctx, prefix_cache=resolved)
         self.sampler = sampler or UniformSampler()
         self.scheduler = make_scheduler(scheduler)
+        self.channel = channel or CommChannel(codec, downlink)
 
     def default_batch_fn(self) -> Callable[[int], list]:
         return default_batch_fn(self.ctx)
 
     def run_round(self, state, round_idx: int,
                   batch_fn: Callable[[int], list]):
-        """One round: sample -> local updates -> aggregate.  Returns
-        (new_state, up_bytes, down_bytes); the downlink is the full state
-        per participant (:meth:`_downlink_bytes`)."""
-        ctx = self.ctx
+        """One round: broadcast (downlink accounting) -> sample -> local
+        updates -> uplink encode -> decode -> aggregate.  Returns
+        (new_state, up_bytes, down_bytes)."""
+        ctx, chan = self.ctx, self.channel
         cohort = self.sampler.sample(ctx, round_idx)
-        down = sum(self._downlink_bytes(state, int(k)) for k in cohort)
+        down = sum(chan.downlink_bytes(self.strategy, ctx, state, int(k))
+                   for k in cohort)
         results = self.scheduler.run(ctx, self.strategy, state, cohort,
                                      batch_fn)
+        results = [chan.encode_result(self.strategy, ctx, state, int(k), r)
+                   for k, r in zip(cohort, results)]
         comm = sum(r.comm_bytes if r.comm_bytes is not None
                    else wire_bytes(r.payload) for r in results)
+        results = [chan.decode_result(r) for r in results]
         return self.strategy.aggregate(ctx, state, results), comm, down
-
-    def _downlink_bytes(self, state, client_id: int) -> int:
-        """The full broadcast's size for one client.  A state that is no
-        tree of tensors (``SplitMixState``) prices as 0 bytes, so it is
-        priced through the strategy's ``downlink_tree`` hook instead."""
-        full = tree_bytes(state)
-        hook = getattr(self.strategy, "downlink_tree", None)
-        if full == 0 and hook is not None:
-            full = tree_bytes(hook(self.ctx, state, client_id))
-        return full
 
     def run(self, *, initial_state=None,
             batch_fn: Optional[Callable[[int], list]] = None,

@@ -14,9 +14,10 @@ Two config families share the class:
     the shared LM head plays the classifier, and aggregation masks by
     trained coverage.
 
-The reference's ``wire_parts`` and ``downlink_tree`` wait for the comm
-channel (the engine's full downlink prices the state itself) and
-``client_work`` for system time.
+On the wire the trained tree is delta-coded against the server's copy
+(``wire_parts``), and a depth-d client's sliced downlink is its prefix
+(``downlink_tree``).  The reference's ``client_work`` waits for system
+time.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.core import aggregation, blockwise
 from repro_torch.core.decomposition import Decomposition
 from repro_torch.fl.baselines import (depthfl_depth_for_budget,
                                       depthfl_init_aux, depthfl_local)
+from repro_torch.fl.comm.payload import WireSpec
 from repro_torch.fl.registry import register
 from repro_torch.fl.strategies import common
 from repro_torch.fl.strategy import ClientResult
@@ -89,6 +91,34 @@ class DepthFLStrategy:
         p, a, _ = depthfl_local(ctx.model_cfg, params, aux, depth, batches,
                                 **kw)
         return ClientResult((p, a, depth), float(ctx.sizes[client_id]))
+
+    # ------------------------------------------------- wire contract
+    def wire_parts(self, ctx, state, result):
+        """Delta-code the trained tree against the server's copy; blocks
+        beyond the client's depth equal the broadcast copy, so their
+        deltas are exact zeros.  The depth rides along uncompressed."""
+        if self._is_lm(ctx):
+            local, depth = result.payload
+            return WireSpec(local, ref=state,
+                            rebuild=lambda t, _d=depth: (t, _d))
+        p, a, depth = result.payload
+        return WireSpec((p, a), ref=state,
+                        rebuild=lambda t, _d=depth: (t[0], t[1], _d))
+
+    def downlink_tree(self, ctx, state, client_id):
+        """Depth-wise downlink slice: a depth-d client needs only the
+        prefix below d and the shared head (LM: the runner's trained
+        subtree for [0, d); image: stem + d blocks + head + the aux exits
+        it covers)."""
+        depth = self.client_depth(ctx, client_id)
+        if self._is_lm(ctx):
+            return self.runner.split(state, 0, depth)
+        params, aux = state
+        sub = {k: params[k] for k in ("stem", "head_norm", "classifier")}
+        sub["blocks"] = params["blocks"][:depth]
+        sub_aux = {k: v for k, v in aux.items()
+                   if int(k.split("_")[1]) <= depth}
+        return (sub, sub_aux)
 
     def _lm_mask(self, ctx, state, depth):
         cache = ctx.caches.setdefault("depthfl_lm_masks", {})

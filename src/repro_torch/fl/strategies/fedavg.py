@@ -29,6 +29,11 @@ class FedAvgStrategy:
         not its own budget's decomposition."""
         return self.r_min
 
+    # Wire contract: no hooks needed.  The x min r subnet is the
+    # wire-minimal model, so the channel's defaults are exact: the sliced
+    # downlink is the whole state, and the payload is congruent with the
+    # state, so ``default_wire_parts`` delta-codes the uplink.
+
     def init_state(self, ctx):
         return image_model(self.sub_cfg).init(ctx.seed, self.sub_cfg,
                                               device=ctx.device)

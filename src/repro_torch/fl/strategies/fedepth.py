@@ -19,7 +19,8 @@ task_loss_fn)`` for surplus clients, ``masked_aggregation=True`` for the
 beyond-paper per-leaf reweighting and ``prox_mu`` for FedProx.  The
 batched hooks let the vectorized scheduler stack the clients that share
 a decomposition (image runners only: an LM runner raises there).  The
-shardable, async and wire hooks wait for their slices.
+wire hooks delta-code the uplink against the broadcast state.  The
+reference's shardable and async hooks are not ported.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.configs.vit_t16 import ViTConfig
 from repro_torch.core import aggregation, blockwise, mkd
 from repro_torch.core.blockwise import BlockRunner
 from repro_torch.fl.baselines import _ce
+from repro_torch.fl.comm.payload import WireSpec
 from repro_torch.fl.registry import register
 from repro_torch.fl.strategies import common
 from repro_torch.fl.strategy import ClientResult, wire_bytes
@@ -170,6 +172,29 @@ class FedepthStrategy:
             cache[key] = aggregation.trained_mask_for(state, dec,
                                                       self.runner)
         return cache[key]
+
+    # ------------------------------------------------- wire contract
+    def wire_parts(self, ctx, state, result):
+        """Lossy uplink codecs encode the client's delta against the
+        broadcast state: a partial-training client's untouched prefix and
+        an MKD client's carried leaves delta to exact zeros, which
+        sparsifying codecs skip.  Under masked aggregation the
+        trained-mask rides along unencoded (the server can derive it from
+        the client's decomposition)."""
+        if self.masked_aggregation:
+            local, tm = result.payload
+            return WireSpec(local, ref=state,
+                            rebuild=lambda t, _tm=tm: (t, _tm))
+        return WireSpec(result.payload, ref=state)
+
+    def downlink_tree(self, ctx, state, client_id):
+        """Depth-wise downlink slice.  Subproblem j needs only ``embed +
+        units[0, hi_j) + head``, so a round's staged downloads telescope
+        to ``embed + units[0, hi_last) + head`` — and FeDepth
+        decompositions always cover the last unit, so the slice is the
+        full model; FeDepth's downlink savings come from the "delta"
+        mode."""
+        return state
 
     def aggregate(self, ctx, state, results):
         ws = [r.weight for r in results]

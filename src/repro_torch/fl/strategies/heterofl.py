@@ -6,23 +6,23 @@ slice covers it.
 
 Clients sharing a width ratio train the identical subnet, so they batch
 as one vectorization group (slice once, vmap the local SGD, pad each).
-The reference's other hooks wait for the subsystems that call them:
-``wire_parts`` and ``downlink_tree`` (the width-r slice, which only the
-sliced / delta downlink modes price) for the comm channel,
-``client_work`` and ``aggregate_async`` for system time.
+On the wire only the width slice crosses (``wire_parts``' mask, and the
+sliced downlink's ``downlink_tree``).  The reference's ``client_work``
+and ``aggregate_async`` wait for system time.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.fl import width as width_util
+from repro_torch.fl.comm.payload import WireSpec
 from repro_torch.fl.baselines import (fedavg_local_batched,
                                       heterofl_aggregate, heterofl_local)
 from repro_torch.fl.registry import register
 from repro_torch.fl.strategies import common
 from repro_torch.fl.strategy import ClientResult, wire_bytes
 from repro_torch.models import resnet
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _slice_coords(mask) -> int:
@@ -44,6 +44,23 @@ class HeteroFLStrategy:
         if ratio not in cache:
             cache[ratio] = wire_bytes(n_coords=_slice_coords(mask))
         return cache[ratio]
+
+    # ------------------------------------------------- wire contract
+    def wire_parts(self, ctx, state, result):
+        """Only the width slice crosses the wire: the mask restricts the
+        codec to the slice's coordinates (the zero padding is never
+        encoded or counted), and the delta reference is the masked
+        broadcast state, so lossy codecs see true in-slice deltas."""
+        padded, mask = result.payload
+        ref = tree_map(lambda s, m: s * m, state, mask)
+        return WireSpec(padded, ref=ref, mask=mask,
+                        rebuild=lambda t, _m=mask: (t, _m))
+
+    def downlink_tree(self, ctx, state, client_id):
+        """Sliced downlink: a width-r client downloads exactly its
+        first-round(r * C)-channels subnet."""
+        r = float(min(ctx.ratios[client_id], 1.0))
+        return width_util.slice_resnet(state, ctx.model_cfg, r)[0]
 
     def client_update(self, ctx, state, client_id, batches):
         r = min(ctx.ratios[client_id], 1.0)

@@ -5,12 +5,14 @@ budget; the global model is the logit-mean ensemble.
 
 A client's base-net subset is drawn from the shared stream AFTER its
 batches (the scheduler draws the batches first), in the reference's
-order.  The reference's ``wire_parts`` waits for the comm channel and
-``client_work`` for system time.
+order.  On the wire each trained base net is delta-coded against the
+server's copy, tagged with the base ids.  The reference's
+``client_work`` waits for system time.
 """
 from __future__ import annotations
 
 from repro_torch.fl.baselines import SplitMixState, fedavg_local
+from repro_torch.fl.comm.payload import WireSpec
 from repro_torch.fl.registry import register
 from repro_torch.fl.strategy import ClientResult, accuracy
 from repro_torch.tree import tree_map
@@ -34,6 +36,19 @@ class SplitMixStrategy:
                                local_steps=ctx.sim.local_steps)
             trained.append((int(b_idx), new))
         return ClientResult(trained, float(ctx.sizes[client_id]))
+
+    def wire_parts(self, ctx, state, result):
+        """Each trained base net is delta-coded against the server's copy;
+        the base ids ride along uncompressed.  Two rounds' wires can share
+        their structure (same capacity) yet cover different base nets, so
+        the wire is tagged with the base ids: error feedback re-applies a
+        residual only under a matching tag."""
+        idxs = tuple(int(i) for i, _ in result.payload)
+        trees = [t for _, t in result.payload]
+        ref = [state.bases[i] for i in idxs]
+        return WireSpec(trees, ref=ref, tag=idxs,
+                        rebuild=lambda ts, _ix=idxs:
+                        [(i, t) for i, t in zip(_ix, ts)])
 
     def downlink_tree(self, ctx, state, client_id):
         """A capacity-``cap`` client downloads ``cap`` base nets.  Which

@@ -4,8 +4,9 @@ Every method is a strategy with four hooks; one ``RoundEngine``
 (:mod:`repro_torch.fl.engine`) owns cohort sampling, budget /
 decomposition assignment, eval cadence and the structured history.  A
 strategy with the two hooks of :class:`BatchableFLStrategy` can be run by
-the vectorized scheduler.  The shardable and async capabilities wait
-for their slices.
+the vectorized scheduler.  A strategy may also declare its wire
+(``wire_parts`` / ``downlink_tree``, :mod:`repro_torch.fl.comm`).  The
+shardable and async capabilities are not ported.
 """
 from __future__ import annotations
 
@@ -112,14 +113,21 @@ class BatchableFLStrategy(FLStrategy, Protocol):
 
 def wire_bytes(tree=None, *, codec=None,
                n_coords: Optional[int] = None) -> int:
-    """The sizing rule for payload wire cost: raw bytes of every tensor
-    leaf, or 4 bytes (fp32) per coordinate for a padded carrier's
-    ``n_coords`` active coordinates (HeteroFL prices its width slice,
-    never the zero padding).  The engine sizes a payload this way when a
-    strategy leaves ``ClientResult.comm_bytes`` at ``None``.  Lossy
-    codecs are not ported yet."""
+    """The sizing rule for payload wire cost.
+
+    * ``codec`` ``None`` / ``"none"``: raw pricing — 4 bytes (fp32) per
+      coordinate of a padded carrier's ``n_coords`` active
+      coordinates (HeteroFL prices its width slice, never the zero
+      padding), else the bytes of every tensor leaf.
+    * any other codec (a name or an instance): the codec's
+      ``size_bytes``.  Under an active ``CommChannel`` the engine
+      overwrites this estimate with the exact encoded size.
+
+    The engine sizes a payload this way when a strategy leaves
+    ``ClientResult.comm_bytes`` at ``None``."""
     if codec is not None and codec != "none":
-        raise NotImplementedError(f"codec {codec!r} is not ported yet")
+        from repro_torch.fl.comm.codecs import get_codec
+        return get_codec(codec).size_bytes(tree, n_coords=n_coords)
     if n_coords is not None:
         return 4 * int(n_coords)
     return tree_bytes(tree)

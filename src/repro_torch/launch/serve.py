@@ -9,7 +9,7 @@ Runs on the GPU unless ``--device cpu``.  Parameters are random, drawn
 from ``--seed`` (no checkpoint ships with the repo).  As in the
 reference, the prompt is fed one token at a time through ``decode_step``
 (the point is the cache's consistency; ``LM.prefill`` is the one-pass
-forward).  On the card the dense and VLM decode attention is plain
+forward).  On the card the dense, MoE and VLM decode attention is plain
 PyTorch, while each ssm decode step runs the scan kernel (K3 or K4) at
 T = 1 from the carried state.
 """
@@ -22,8 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs import (ARCH_IDS, NOT_PORTED, get_config,
-                                 get_reduced_config)
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models.api import LM, build, init_cache
 
@@ -87,7 +86,7 @@ def serve(lm: LM, params, prompt: torch.Tensor, gen: int, *,
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=sorted(ARCH_IDS + NOT_PORTED),
+    ap.add_argument("--arch", choices=sorted(ARCH_IDS),
                     default="yi-6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=2)

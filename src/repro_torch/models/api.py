@@ -1,6 +1,6 @@
-"""Unified model API (port of ``repro.models.api``: the dense and vlm
+"""Unified model API (port of ``repro.models.api``: the dense, moe and vlm
 families, the attention-free ``ssm`` family (mamba2, rwkv6), the
-``hybrid`` zamba2 and the ``audio`` encoder-decoder whisper; MoE waits).
+``hybrid`` zamba2 and the ``audio`` encoder-decoder whisper).
 
 ``build(cfg)`` -> ``LM`` with ``init``, ``loss_fn``, the serving entry
 points ``prefill`` (last-position logits) and ``decode_step`` (one token
@@ -63,7 +63,8 @@ class LM:
     @property
     def num_depth_units(self) -> int:
         """Finest decomposition granularity (paper: 'finest blocks'): a
-        layer, a zamba2 group, whisper's encoder then decoder layers."""
+        layer (``moe_every`` layers for an interleaved MoE), a zamba2
+        group, whisper's encoder then decoder layers."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             return zamba2.group_layout(cfg)[0]
@@ -91,8 +92,7 @@ class LM:
 
 
 def build(cfg: ModelConfig) -> LM:
-    if cfg.family in ("dense", "vlm"):
-        transformer._check_family(cfg)
+    if cfg.family in ("dense", "moe", "vlm"):
         return LM(cfg, transformer)
     if cfg.family == "ssm":
         return LM(cfg, mamba2_lm if cfg.ssm_kind == "mamba2" else rwkv6)
@@ -101,8 +101,7 @@ def build(cfg: ModelConfig) -> LM:
     if cfg.family == "audio":
         return LM(cfg, whisper)
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (dense, vlm, ssm, "
-        f"hybrid and audio only)")
+        f"unknown model family {cfg.family!r}")
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,

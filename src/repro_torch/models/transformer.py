@@ -1,62 +1,72 @@
-"""Decoder-only transformer LM, dense and VLM families (port of
-``repro.models.transformer``; MoE waits): training loss, prefill and
-one-token decode over a stacked KV cache.
+"""Decoder-only transformer LM, the dense, MoE and VLM families (port of
+``repro.models.transformer``): training loss, prefill and one-token
+decode over a stacked KV cache.
 
-Depth structure: one unit is one layer.  The reference stacks units on a
+Depth structure: one unit is ``moe_every`` layers (1 for the dense, VLM
+and pure-MoE archs; 2 for llama4's dense layer then MoE layer), of the
+kinds ``cfg.layer_kinds()`` gives.  The reference stacks units on a
 leading axis for ``lax.scan``; here ``params["units"]`` is a list with one
-parameter dict per layer, so a FeDepth block [lo, hi) is a list slice and
-the layers run as a Python loop.  The VLM's vision tower is stubbed:
-``vision_embeds`` (B, P, d) are prepended to the token embeddings.
+parameter dict per unit, so a FeDepth block [lo, hi) is a list slice and
+the units run as a Python loop.  A unit of one layer is that layer's
+dict; a unit of m > 1 layers is ``{"sub_0": ..., "sub_{m-1}": ...}``.
+A layer's feed-forward is a SwiGLU ``"mlp"`` (of ``dense_d_ff`` if the
+config sets it) or a ``"moe"`` (``models.moe``).  The VLM's vision tower
+is stubbed: ``vision_embeds`` (B, P, d) are prepended to the token
+embeddings.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
 
 Params = Dict[str, Any]
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm") or cfg.moe_every != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense and vlm families are ported, got "
-            f"{cfg.family!r} with moe_every {cfg.moe_every}")
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, *, device,
-                dtype) -> Params:
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, *,
+                device, dtype) -> Params:
     d = cfg.d_model
-    d_ff = cfg.dense_d_ff or cfg.d_ff
     kw = dict(device=device, dtype=dtype)
-    return {
+    p = {
         "attn_norm": torch.ones(d, **kw),
         "attn": attention.init(gen, cfg, **kw),
         "mlp_norm": torch.ones(d, **kw),
-        "mlp": {
+    }
+    if kind == "moe":
+        p["moe"] = moe.init(gen, cfg, **kw)
+    else:
+        d_ff = cfg.dense_d_ff or cfg.d_ff
+        p["mlp"] = {
             "w_gate": common.dense_init(gen, (d, d_ff), **kw),
             "w_up": common.dense_init(gen, (d, d_ff), **kw),
             "w_down": common.dense_init(gen, (d_ff, d), **kw),
-        },
-    }
+        }
+    return p
+
+
+def _init_unit(gen: torch.Generator, cfg: ModelConfig, **kw) -> Params:
+    kinds = cfg.layer_kinds()
+    if cfg.moe_every == 1:
+        return _init_layer(gen, cfg, kinds[0], **kw)
+    return {f"sub_{i}": _init_layer(gen, cfg, kinds[i], **kw)
+            for i in range(cfg.moe_every)}
 
 
 def init(cfg: ModelConfig, *, generator: torch.Generator, device,
          dtype=common.DEFAULT_DTYPE) -> Params:
-    _check_family(cfg)
     kw = dict(device=device, dtype=dtype)
     p: Params = {
         "embed": common.embed_init(generator, (cfg.vocab_size, cfg.d_model),
                                    **kw),
-        "units": [_init_layer(generator, cfg, **kw)
-                  for _ in range(cfg.num_layers)],
+        "units": [_init_unit(generator, cfg, **kw)
+                  for _ in range(cfg.num_layers // cfg.moe_every)],
         "final_norm": torch.ones(cfg.d_model, **kw),
     }
     if not cfg.tie_embeddings:
@@ -65,36 +75,53 @@ def init(cfg: ModelConfig, *, generator: torch.Generator, device,
     return p
 
 
+def _sublayers(unit: Params, cfg: ModelConfig) -> List[Params]:
+    """A unit's layers in depth order."""
+    if cfg.moe_every == 1:
+        return [unit]
+    return [unit[f"sub_{i}"] for i in range(cfg.moe_every)]
+
+
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
-def _mlp(layer: Params, cfg: ModelConfig, x):
-    """The layer's SwiGLU sub-block: pre-norm, MLP, residual."""
+def _ffn(layer: Params, cfg: ModelConfig, kind: str, x):
+    """The layer's feed-forward sub-block (pre-norm, SwiGLU or MoE,
+    residual) -> (x, the MoE router's aux loss or 0.0)."""
     h = common.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    if kind == "moe":
+        out, aux = moe.forward(layer["moe"], cfg, h)
+        return x + out, aux
     mlp = layer["mlp"]
-    return x + common.swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+    return x + common.swiglu(h, mlp["w_gate"], mlp["w_up"],
+                             mlp["w_down"]), 0.0
 
 
-def _layer_forward(layer: Params, cfg: ModelConfig, x, positions,
-                   mrope_positions):
+def _layer_forward(layer: Params, cfg: ModelConfig, kind: str, x,
+                   positions, mrope_positions):
     h = common.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
     x = x + attention.forward(layer["attn"], cfg, h, positions,
                               mrope_positions=mrope_positions)
-    return _mlp(layer, cfg, x)
+    return _ffn(layer, cfg, kind, x)
 
 
 def apply_unit_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
                      hi: int, *, mrope_positions=None
-                     ) -> Tuple[torch.Tensor, float]:
+                     ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """Run units [lo, hi) over hidden states x at positions 0..T-1.
-    Returns (x, aux_loss); the dense family has no auxiliary loss.  No
+    Returns (x, the summed MoE aux loss; 0.0 when no layer is MoE).  No
     per-unit rematerialization: a FeDepth block step keeps one block's
     activations, far below the card's memory at the slice's shapes."""
+    kinds = cfg.layer_kinds()
     positions = common.causal_positions(x.shape[0], x.shape[1],
                                         device=x.device)
-    for layer in p["units"][lo:hi]:
-        x = _layer_forward(layer, cfg, x, positions, mrope_positions)
-    return x, 0.0
+    aux = 0.0
+    for unit in p["units"][lo:hi]:
+        for i, layer in enumerate(_sublayers(unit, cfg)):
+            x, a = _layer_forward(layer, cfg, kinds[i], x, positions,
+                                  mrope_positions)
+            aux = aux + a
+    return x, aux
 
 
 def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -119,7 +146,7 @@ def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         vis = torch.arange(P, dtype=mrope_positions.dtype,
                            device=x.device).expand(3, x.shape[0], P)
         mrope_positions = torch.cat([vis, mrope_positions + P], dim=2)
-    return apply_unit_range(p, cfg, x, 0, cfg.num_layers,
+    return apply_unit_range(p, cfg, x, 0, cfg.num_layers // cfg.moe_every,
                             mrope_positions=mrope_positions)
 
 
@@ -131,8 +158,8 @@ def _forward_batch(p: Params, cfg: ModelConfig, batch):
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Mean next-token CE on a train batch; no loss on the vision
-    prefix."""
+    """Mean next-token CE (+ ``router_aux_coef`` x the MoE aux loss) on a
+    train batch; no loss on the vision prefix."""
     x, aux = _forward_batch(p, cfg, batch)
     x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
     if batch.get("vision_embeds") is not None:
@@ -158,14 +185,19 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict[str, torch.Tensor], cache_index: int, *,
                 mrope_positions=None):
     """One decode step.  tokens: (B, 1); cache: {"k", "v"}: (L, B, S, Hkv,
-    hd) in bf16, each layer's slot written in place.  Returns (logits (B,
-    1, V), ``cache``)."""
+    hd) in bf16, layer l = unit * moe_every + i, each layer's slot written
+    in place.  A MoE layer routes the B tokens with the capacity of B
+    tokens (as the reference: at B 4, top 8 of 128 experts, one slot an
+    expert).  Returns (logits (B, 1, V), ``cache``)."""
+    kinds = cfg.layer_kinds()
     x = p["embed"][tokens]
-    for i, layer in enumerate(p["units"]):
-        h = common.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        a = attention.decode(layer["attn"], cfg, h, cache["k"][i],
-                             cache["v"][i], cache_index,
-                             mrope_positions=mrope_positions)
-        x = _mlp(layer, cfg, x + a)
+    for u, unit in enumerate(p["units"]):
+        for i, layer in enumerate(_sublayers(unit, cfg)):
+            l = u * cfg.moe_every + i
+            h = common.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+            a = attention.decode(layer["attn"], cfg, h, cache["k"][l],
+                                 cache["v"][l], cache_index,
+                                 mrope_positions=mrope_positions)
+            x, _ = _ffn(layer, cfg, kinds[i], x + a)
     x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
     return x @ common.head_weight(p, cfg), cache

@@ -1,11 +1,14 @@
 """Carry parameters across between the reference and the port.
 
-The reference keeps a dense transformer as
-``{"embed", "units": {"sub_0": {... leaves stacked on a leading layer
-axis}}, "final_norm", "lm_head"}`` of arrays, and an ``ssm`` LM (mamba2,
-rwkv6) as ``{"embed", "layers": {... stacked leaves}, "final_norm"[,
-"lm_head"]}``; the port keeps ``params["units"]`` / ``params["layers"]``
-as a list with one dict per layer.  A zamba2 tree stacks its mamba
+The reference keeps a transformer (dense, MoE, VLM) as
+``{"embed", "units": {"sub_0": ..., "sub_{m-1}": {... leaves stacked on a
+leading unit axis}}, "final_norm", "lm_head"}`` of arrays, m the
+config's ``moe_every``, and an ``ssm`` LM (mamba2, rwkv6) as ``{"embed",
+"layers": {... stacked leaves}, "final_norm"[, "lm_head"]}``; the port
+keeps ``params["units"]`` / ``params["layers"]`` as a list with one dict
+per unit or layer: a unit of one sublayer is that sublayer's dict, a
+unit of m > 1 is ``{"sub_0": ..., "sub_{m-1}": ...}`` (llama4's dense
+layer, then its MoE layer).  A zamba2 tree stacks its mamba
 layers as (G, M, ...) leaves under ``"mamba_groups"``; the port keeps a
 list of G groups, each a list of M per-layer dicts.  A whisper tree
 stacks ``"enc_layers"`` and ``"dec_layers"`` on a leading layer axis; the
@@ -36,8 +39,9 @@ and its unstacked ``enc_out`` too).  numpy has no bf16 of
 its own, so a bf16 leaf crosses as float32 (exact) and ``dtypes`` names
 the dtype to cast it back to.
 
-Arrays cross as numpy, so this module needs neither JAX nor the reference
-package.
+The layers' stacking and the conv transpose are ``repro_torch.layout``'s,
+which the wire codecs share.  Arrays cross as numpy, so this module needs
+neither JAX nor the reference package.
 """
 from __future__ import annotations
 
@@ -47,49 +51,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.tree import tree_leaves, tree_map
-
-
-_HWIO_TO_OIHW = (3, 2, 0, 1)
-_OIHW_TO_HWIO = (2, 3, 1, 0)
-
-
-def _unstack(tree: Any, i: int) -> Any:
-    if isinstance(tree, dict):
-        return {k: _unstack(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _stack(layers: list) -> Any:
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: _stack([layer[k] for layer in layers]) for k in first}
-    return np.stack(layers)
-
-
-def _conv_layout(tree: Any, axes: tuple) -> Any:
-    """Transpose every 4-D leaf (a ResNet tree's conv weights) by
-    ``axes``; copies, so the result shares no memory with ``tree``."""
-    return tree_map(lambda a: np.transpose(a, axes).copy()
-                    if np.ndim(a) == 4 else np.array(a), tree)
-
-
-# the LM trees' keys stacked on a leading layer axis in the reference
-_LAYER_KEYS = ("units", "layers", "enc_layers", "dec_layers",
-               "mamba_groups")
-
-
-def _is_lm(tree: Dict[str, Any]) -> bool:
-    return any(k in tree for k in _LAYER_KEYS)
-
-
-def _unstack_all(stacked: Any) -> list:
-    n = len(tree_leaves(stacked)[0])
-    return [_unstack(stacked, i) for i in range(n)]
-
-
-def _is_vit(tree: Dict[str, Any]) -> bool:
-    return "patch_embed" in tree
+from repro_torch.layout import (OIHW_TO_HWIO, conv_layout,
+                                from_stacked_layout, is_lm, is_vit,
+                                to_stacked_layout)
+from repro_torch.tree import tree_map
 
 
 def _tensors(tree: Any, dev, dtype) -> Any:
@@ -105,27 +70,7 @@ def params_from_reference(tree: Any, *, device: DeviceLike = None,
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_reference(t, device=dev, dtype=dtype)
                           for t in tree)
-    if _is_vit(tree):
-        n = len(tree_leaves(tree["blocks"])[0])
-        return _tensors({**tree, "blocks": [_unstack(tree["blocks"], i)
-                                            for i in range(n)]}, dev, dtype)
-    if not _is_lm(tree):
-        return tree_map(lambda a: torch.tensor(a, dtype=dtype, device=dev),
-                        _conv_layout(tree, _HWIO_TO_OIHW))
-    out = dict(tree)
-    for key in _LAYER_KEYS:
-        if key not in tree:
-            continue
-        stacked = tree[key]
-        if key == "units":
-            if set(stacked) != {"sub_0"}:
-                raise NotImplementedError(f"only one sublayer per unit is "
-                                          f"ported, got {sorted(stacked)}")
-            stacked = stacked["sub_0"]
-        out[key] = _unstack_all(stacked)
-        if key == "mamba_groups":       # (G, M, ...): a list of lists
-            out[key] = [_unstack_all(group) for group in out[key]]
-    return _tensors(out, dev, dtype)
+    return _tensors(from_stacked_layout(tree), dev, dtype)
 
 
 def params_to_reference(params: Any) -> Any:
@@ -133,20 +78,9 @@ def params_to_reference(params: Any) -> Any:
     if isinstance(params, (list, tuple)):
         return type(params)(params_to_reference(t) for t in params)
     host = tree_map(lambda t: t.detach().cpu().numpy(), params)
-    if _is_vit(host):
-        return {**host, "blocks": _stack(host["blocks"])}
-    if not _is_lm(host):
-        return _conv_layout(host, _OIHW_TO_HWIO)
-    out = dict(host)
-    for key in ("layers", "enc_layers", "dec_layers"):
-        if key in host:
-            out[key] = _stack(host[key])
-    if "units" in host:
-        out["units"] = {"sub_0": _stack(host["units"])}
-    if "mamba_groups" in host:
-        out["mamba_groups"] = _stack([_stack(group)
-                                      for group in host["mamba_groups"]])
-    return out
+    if not is_lm(host) and not is_vit(host):
+        return conv_layout(host, OIHW_TO_HWIO)
+    return to_stacked_layout(host)
 
 
 def cache_from_reference(cache: Dict[str, Any], *, device: DeviceLike = None,

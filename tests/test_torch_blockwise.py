@@ -141,6 +141,45 @@ def test_client_update_owns_only_what_it_trains(setup):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("prefix_cache,prox_mu,in_place", [
+    (True, 0.0, True), (False, 0.0, False), (True, 0.5, False)])
+def test_client_update_trains_its_own_copies_in_place(setup, prefix_cache,
+                                                      prox_mu, in_place):
+    """A block after the first trains the head copy that the blocks
+    before it made, in place (one copy of the head for the whole update),
+    when the prefix is buffered and no FedProx anchor reads the old
+    value; otherwise each block clones it.  The input is never written
+    and the result is the same either way."""
+    jcfg, cfg, jparams, _, batches_t = setup
+    runner = tbw.lm_runner(build(cfg))
+    heads = []
+    merge = runner.merge
+
+    def recording_merge(params, train, lo=None, hi=None):
+        if not train["lm_head"].requires_grad:   # a block's end, not a step
+            heads.append(train["lm_head"])
+        return merge(params, train, lo=lo, hi=hi)
+
+    params = params_from_reference(_np(jparams), device="cpu")
+    snapshot = [t.clone() for t in tree_leaves(params)]
+    dec = TDec(((0, 1), (1, 3), (3, 4)), 0, 0)
+    kw = dict(lr=0.05, momentum=0.9, prox_mu=prox_mu)
+    out = tbw.client_update(dataclasses.replace(runner,
+                                                merge=recording_merge),
+                            params, dec, batches_t,
+                            prefix_cache=prefix_cache, **kw)
+    ptrs = {h.untyped_storage().data_ptr() for h in heads}
+    assert len(heads) == 3
+    assert len(ptrs) == (1 if in_place else 3)
+    assert params["lm_head"].untyped_storage().data_ptr() not in ptrs
+    for a, b in zip(tree_leaves(params), snapshot):
+        assert torch.equal(a, b)
+    cloned = tbw.client_update(runner, params, dec, batches_t,
+                               prefix_cache=False, **kw)
+    for a, b in zip(tree_leaves(out), tree_leaves(cloned)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
 def test_fedavg_matches_reference_and_drops_non_finite():
     rng = np.random.default_rng(5)
     trees = [{"a": rng.standard_normal((3, 4)).astype(np.float32),

@@ -23,8 +23,11 @@ rtol 1e-4) and one stacked (vectorized) FeDepth group update of the
 reduced PreResNet and ViT (atol 1e-4, rtol 1e-3).  Serving: each
 family's reduced prefill and 8 decode steps on the card against the CPU
 (K2 on the dense, vlm and hybrid prefills, K3 / K4 on every ssm and
-hybrid decode step); reduced whisper's loss, gradients, prefill and
-decode steps (K2 non-causal, causal and cross, K1 on the tied head).
+hybrid decode step; the MoE family's decode at a capacity of 1 an
+expert); reduced whisper's loss, gradients, prefill and decode steps (K2
+non-causal, causal and cross, K1 on the tied head).  The wire: one
+FeDepth round under ``fp16`` and ``qsgd_int8`` on the card against the
+CPU (equal bytes, payloads decoded onto the card).
 """
 import dataclasses
 
@@ -390,14 +393,18 @@ PATH_KERNELS = {"qwen2-7b": (flash_attention, chunked_cross_entropy),
                 "mamba2-370m": (mamba2_scan, chunked_cross_entropy),
                 "rwkv6-7b": (rwkv6_scan, chunked_cross_entropy),
                 "zamba2-1.2b": (mamba2_scan, flash_attention,
-                                chunked_cross_entropy)}
+                                chunked_cross_entropy),
+                "qwen3-moe-235b-a22b": (flash_attention,
+                                        chunked_cross_entropy),
+                "llama4-maverick-400b-a17b": (flash_attention,
+                                              chunked_cross_entropy)}
 
 
 @pytest.mark.parametrize("arch", sorted(PATH_KERNELS))
 def test_round_on_the_card_matches_the_cpu(cuda, arch):
     """One FeDepth round of the reduced model (4 layers; zamba2's two
-    groups) through the CUDA kernels equals the same round on the
-    CPU."""
+    groups; llama4's two units of a dense and a MoE layer) through the
+    CUDA kernels equals the same round on the CPU."""
     cfg = dataclasses.replace(get_reduced_config(arch), num_layers=4)
     sim = SimConfig(rounds=1, participation=0.5, lr=0.05, local_steps=1,
                     batch_size=4, seed=0)
@@ -422,7 +429,8 @@ KERNELS = (flash_attention, chunked_cross_entropy, mamba2_scan, rwkv6_scan)
 
 
 SERVE_ARCHS = ["yi-6b", "h2o-danube-3-4b", "minicpm-2b", "qwen2-vl-2b",
-               "mamba2-370m", "rwkv6-7b"]
+               "mamba2-370m", "rwkv6-7b", "qwen3-moe-235b-a22b",
+               "llama4-maverick-400b-a17b"]
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
@@ -432,8 +440,10 @@ def test_serving_on_the_card_matches_the_cpu(cuda, arch):
     cache (a bf16 entry on a rounding boundary may round either way, and
     carried on it would move later steps): logits atol 1e-4 / rtol 1e-3,
     fp32 cache leaves atol 1e-5 / rtol 1e-4, bf16 leaves at most one bf16
-    ulp beyond that.  Decode launches K3 / K4 on the ssm family, K2 on
-    none."""
+    ulp beyond that.  The MoE archs carry fp32 cache leaves, as zamba2's
+    test does: their card read a new bf16 K / V entry rounded the other
+    way at one step, moving its logits by ~2e-4.  Decode launches K3 / K4
+    on the ssm family, K2 on none."""
     cfg = get_reduced_config(arch)
     lm = build(cfg)
     params = lm.init(0, device="cpu")
@@ -447,6 +457,8 @@ def test_serving_on_the_card_matches_the_cpu(cuda, arch):
                                rtol=1e-4)
     assert (flash_attention.launches > before[0]) == (cfg.family != "ssm")
     cache = init_cache(cfg, 2, 12, device="cpu")
+    if cfg.family == "moe":
+        cache = {k: v.float() for k, v in cache.items()}
     scan = mamba2_scan if cfg.ssm_kind == "mamba2" else rwkv6_scan
     for t in range(8):
         before = [fn.launches for fn in KERNELS]
@@ -589,6 +601,35 @@ def test_image_round_on_the_card_matches_the_cpu(cuda, method, scenario):
         assert 0.0 <= hist[-1].accuracy <= 1.0
     assert [fn.launches for fn in KERNELS] == before
     for a, b in zip(tree_leaves(states["cuda"]), tree_leaves(states["cpu"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("codec", ["fp16", "qsgd_int8"])
+def test_codec_round_on_the_card_matches_the_cpu(cuda, codec):
+    """One FeDepth round of the reduced PreResNet under a lossy codec
+    (error feedback on) and the delta downlink: the payloads decode back
+    onto the card, the bytes equal the CPU's, and the state equals the
+    CPU's round (atol 1e-4, rtol 1e-3)."""
+    cfg = reduced(num_classes=10, image_size=16)
+    sim = SimConfig(rounds=1, participation=0.5, lr=0.05, local_steps=1,
+                    batch_size=32, seed=0)
+    states, hists, init = {}, {}, None
+    for dev in ("cpu", "cuda"):
+        data = build_federated(num_clients=8, n_train=640, n_test=64,
+                               image_size=16, seed=0, device=dev)
+        ctx = build_context(data, sim, model_cfg=cfg, device=dev)
+        strategy = get_strategy("fedepth")
+        if init is None:
+            strategy.setup(ctx)
+            init = strategy.init_state(ctx)
+        states[dev], hists[dev] = RoundEngine(
+            strategy, ctx, codec=codec, downlink="delta").run(
+                initial_state=tree_map(lambda t: t.to(dev), init))
+    assert [(r.comm_bytes, r.down_bytes) for r in hists["cuda"]] == \
+        [(r.comm_bytes, r.down_bytes) for r in hists["cpu"]]
+    for a, b in zip(tree_leaves(states["cuda"]), tree_leaves(states["cpu"])):
+        assert a.device.type == "cuda"
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-3)
 

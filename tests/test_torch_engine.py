@@ -38,8 +38,7 @@ def test_two_rounds_match_reference_engine(arch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(scheduler="sharded"), dict(codec="fp16"),
-    dict(downlink="delta"), dict(obs="on"), dict(checkpoint_every=1),
+    dict(scheduler="sharded"), dict(obs="on"), dict(checkpoint_every=1),
     dict(faults=object()), dict(resume=True)])
 def test_unported_engine_knobs_raise(knob):
     cfg = get_reduced_config("qwen2-7b")

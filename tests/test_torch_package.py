@@ -38,7 +38,9 @@ TREES = [("qwen2-7b", "units", ("units", "sub_0", "attn", "wq")),
          ("qwen2-vl-2b", "units", ("units", "sub_0", "attn", "bq")),
          ("zamba2-1.2b", "mamba_groups", ("mamba_groups", "in_proj")),
          ("whisper-small", "enc_layers", ("enc_layers", "mlp", "w1")),
-         ("whisper-small", "dec_layers", ("dec_layers", "cross_attn", "wk"))]
+         ("whisper-small", "dec_layers", ("dec_layers", "cross_attn", "wk")),
+         ("qwen3-moe-235b-a22b", "units", ("units", "sub_0", "moe",
+                                           "w_gate"))]
 
 
 @pytest.mark.parametrize("arch,key,leaf", TREES)
@@ -123,6 +125,11 @@ SERVING_PATH = ("configs.shapes", "configs.yi_6b", "configs.h2o_danube3_4b",
                 "models.mamba2", "models.mamba2_lm", "models.rwkv6",
                 "configs.zamba2_1_2b", "configs.whisper_small",
                 "models.zamba2", "models.whisper")
+# the MoE family's modules and the wire layer's
+MOE_COMM_PATH = ("configs.qwen3_moe_235b_a22b",
+                 "configs.llama4_maverick_400b_a17b", "models.moe",
+                 "fl.comm", "fl.comm.codecs", "fl.comm.error_feedback",
+                 "fl.comm.payload", "layout")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -134,9 +141,24 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
     assert len(names) >= 28
-    missing = [m for m in IMAGE_PATH + SERVING_PATH
+    missing = [m for m in IMAGE_PATH + SERVING_PATH + MOE_COMM_PATH
                if f"repro_torch.{m}" not in names]
     assert not missing, missing
+
+
+def test_runtime_modules_do_not_import_testing():
+    """The training, wire and serving modules stand without
+    ``repro_torch.testing`` (the parity helpers): the wire format is the
+    program's, not the tests'."""
+    code = ("import sys, repro_torch.fl.engine, repro_torch.fl.comm, "
+            "repro_torch.fl.registry, repro_torch.launch.serve; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('repro_torch.testing')))")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):

@@ -487,9 +487,9 @@ def test_serve_loop_and_refusals():
     """``serve`` returns the generated tokens (greedy: the argmax of the
     logits before each), the last prompt token's logits equal to a fresh
     walk's, and the timings, for a dense model and for the hybrid zamba2
-    (mamba states and one KV cache per shared-block invocation); the
-    unported MoE archs raise, and an encoder-decoder exits as the
-    reference's driver does."""
+    (mamba states and one KV cache per shared-block invocation), and for
+    both MoE archs (one unit of two sublayers for llama4); an
+    encoder-decoder exits as the reference's driver does."""
     for arch in ("yi-6b", "zamba2-1.2b"):
         res = serve_mod.main(["--arch", arch, "--reduced", "--device",
                               "cpu", "--batch", "2", "--prompt-len", "5",
@@ -499,8 +499,13 @@ def test_serve_loop_and_refusals():
         assert torch.equal(res.tokens[:, :1], res.prompt_logits[
             :, -1].argmax(-1, keepdim=True))
     for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            serve_mod.main(["--arch", arch, "--reduced", "--device", "cpu"])
+        res = serve_mod.main(["--arch", arch, "--reduced", "--device",
+                              "cpu", "--batch", "2", "--prompt-len", "5",
+                              "--gen", "4"])
+        assert res.tokens.shape == (2, 4) and res.logits.shape == (2, 1, 512)
+        assert bool(torch.isfinite(res.logits).all())
+        assert torch.equal(res.tokens[:, :1], res.prompt_logits[
+            :, -1].argmax(-1, keepdim=True))
     with pytest.raises(SystemExit, match="whisper"):
         serve_mod.main(["--arch", "whisper-small", "--reduced", "--device",
                         "cpu"])
