@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (each fails loudly; any failure exits non-zero):
 
-1. environment: torch / CUDA versions, ``nvidia-smi`` name and power limit;
+1. environment: torch / CUDA versions, ``nvidia-smi`` name and power limit,
+   and the cuBLAS workspace under the script's ``CUBLAS_WORKSPACE_CONFIG``
+   beside PyTorch's default one;
 2. build: every hand-written CUDA kernel of the port, with ``nvcc``, from
    the sources in this checkout, one ``nvcc`` per source in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -100,7 +102,27 @@ Phases (each fails loudly; any failure exits non-zero):
    checks (2 + 2 layers), a timed prefill of 4 x 1500 frames and 4 x 64
    tokens and a 32-step ``decode_step`` walk from the encoder's output
    (K2 cross at Tq = 1 in every layer of every step).  K1 must not
-   launch.
+   launch;
+8. system time and faults (run after phase 5, on its data): (a) on
+   full-width PreResNet-20 (100 clients, 10 a round, ``fair``; no kernel
+   may launch), under deterministic cuDNN and algorithms, two
+   ``RoundEngine`` FeDepth rounds twice (the control) and
+   ``AsyncEngine(mode="sync")`` over a zero-latency system, bitwise
+   equal; then async FeDepth over ``profiles_for_ratios`` (concurrency
+   10, buffer 5, 4 server versions) twice (the control), checkpointed
+   every 2 versions (aux blobs through pickle), killed and resumed:
+   state, history rows and trace bitwise the uninterrupted run's; (b)
+   mamba2-370m at published widths and all 48 layers, FeDepth over 6
+   clients with phase 4's data: an async run (concurrency 3, buffer 2, 2
+   server versions) whose peak must stay within its reckoning
+   (``_reckon_async``), then 3 sync rounds under the reference tests'
+   HEAVY fault plan with ``resample`` degradation, twice (the control),
+   checkpointed every round, killed after round 2 and resumed, bitwise
+   (deterministic algorithms; ``CUBLAS_WORKSPACE_CONFIG`` is set at the
+   start), with a fault or quarantine in the trace.  K1 and K3 must
+   launch in each LM run, at shapes phase 3 checked.  Each run logs wall
+   and sim seconds, peak and launches, the first of each set of
+   identical runs its device idle share.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (every timed shape beside the first under ``heads``, each with
@@ -111,6 +133,7 @@ launches per run under ``serving``), then ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -163,6 +186,27 @@ def phase_env() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     log(f"nvidia-smi: {smi}")
+    # ``main`` sets CUBLAS_WORKSPACE_CONFIG for phase 8's deterministic
+    # algorithms; phase 3's cuBLAS yardsticks are PyTorch's default ones
+    # only while the workspace it configures is the default's size: log
+    # both, the default's from a process without the variable
+    probe = ("import torch; a = torch.ones(64, 64, device='cuda'); "
+             "n = torch.cuda.memory_allocated(); b = a @ a; "
+             "torch.cuda.synchronize(); "
+             "print(torch.cuda.memory_allocated() - n - b.nbytes)")
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    default = subprocess.run([sys.executable, "-c", probe], env=env,
+                             capture_output=True, text=True, check=True,
+                             timeout=300).stdout.strip()
+    a = torch.ones(64, 64, device="cuda")
+    n = torch.cuda.memory_allocated()
+    b = a @ a
+    torch.cuda.synchronize()
+    log(f"cuBLAS workspace: {torch.cuda.memory_allocated() - n - b.nbytes} "
+        f"B under CUBLAS_WORKSPACE_CONFIG="
+        f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}, {default} B by "
+        f"default")
     return smi
 
 
@@ -2497,6 +2541,355 @@ def phase_serving() -> dict:
     return runs
 
 
+# --------------------------------------------------------------- phase 8
+SYSTIME_ARCH = "mamba2-370m"
+# the reference tests' HEAVY fault plan (tests/test_faults.py)
+HEAVY = dict(seed=7, crash_rate=0.1, drop_rate=0.1, corrupt_rate=0.15,
+             diverge_rate=0.1, slowdown_rate=0.1)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic cuDNN and ``torch.use_deterministic_algorithms`` for
+    the bitwise checks (``main`` sets ``CUBLAS_WORKSPACE_CONFIG`` before
+    cuBLAS starts): cuDNN's default convolution backward, and some plain
+    backwards, accumulate with atomics.  New allocations are not filled
+    (the mode's default, a debugging aid that writes every one): no
+    result reads them."""
+    import torch
+    import torch.utils.deterministic as det
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             det.fill_uninitialized_memory)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2])
+        det.fill_uninitialized_memory = saved[3]
+
+
+def _leaf_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _first_difference(a, b):
+    """The first leaf (by path) where two states differ bitwise, or
+    None."""
+    import torch
+    la, lb = list(_leaf_paths(a)), list(_leaf_paths(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return "the tree structure"
+    for (path, x), (_, y) in zip(la, lb):
+        if not torch.equal(x, y):
+            return f"leaf {path} (max abs diff {float((x - y).abs().max())})"
+    return None
+
+
+def _rows(history) -> list:
+    # wall seconds are never bitwise; everything else must be
+    return [(r.round, r.accuracy, r.comm_bytes, r.sim_seconds,
+             r.down_bytes) for r in history]
+
+
+def _same_run(what: str, a: tuple, b: tuple) -> None:
+    """Two runs' (state, history, trace): the state bitwise, the history
+    rows and the trace equal (a trace of None is not compared); fails
+    naming the first leaf that differs."""
+    diff = _first_difference(a[0], b[0])
+    rows = _rows(a[1]) == _rows(b[1])
+    trace = a[2] is None or b[2] is None or a[2] == b[2]
+    ok = diff is None and rows and trace
+    log(f"  {what}: states bitwise equal {diff is None}, history rows "
+        f"equal {rows}, traces equal {trace} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: first differing leaf {diff}, rows "
+                             f"{_rows(a[1])} vs {_rows(b[1])}, traces "
+                             f"equal {trace}")
+
+
+def _systime_run(name: str, smi: str, engine, profile: bool = False):
+    """``engine.run(eval_every=1)`` counted (:func:`_counted`), and with
+    ``profile`` under :func:`device_busy`; logs wall and sim seconds, the
+    peak, the launches and (profiled) the device's idle share beside the
+    card; returns ((state, history, trace), launches, launches by shape,
+    peak).  Only the first of each set of identical runs is profiled:
+    reading the profile back costs the host tens of seconds a million
+    device operations, and the repeats do the same work."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count = lambda: _counted(lambda: engine.run(eval_every=1))  # noqa: E731
+    if profile:
+        (out, launches, _, shapes), wall, busy, n = device_busy(count)
+        idle = (f", device busy {busy:.3f} s over {n} device operations, "
+                f"idle share {1 - busy / wall:.4f}")
+    else:
+        out, launches, wall, shapes = count()
+        idle = ""
+    state, history = out
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name}: wall {wall:.2f} s, sim {history[-1].sim_seconds:.3f} "
+        f"s, peak {peak / GIB:.2f} GiB, launches {launches}{idle} ({smi})")
+    return (state, history, getattr(engine, "trace", None)), launches, \
+        shapes, peak
+
+
+def _kill_latest(d: str) -> int:
+    """Remove the newest checkpoint pair (the run "died" before writing
+    it); returns the rounds (server versions) the newest remaining pair
+    holds, where a resume picks up."""
+    pairs = sorted(f for f in os.listdir(d) if f.endswith(".npz"))
+    os.remove(os.path.join(d, pairs[-1]))
+    os.remove(os.path.join(d, pairs[-1][:-len(".npz")] + ".aux"))
+    return int(pairs[-2][len("round_"):-len(".npz")]) + 1
+
+
+def _fault_events(trace) -> dict:
+    kinds = {}
+    for event in trace:
+        if event[0] in ("fail", "quarantine", "miss"):
+            key = f"{event[0]} {event[4]}"
+            kinds[key] = kinds.get(key, 0) + 1
+    return kinds
+
+
+def _check_finite(name: str, state) -> None:
+    import torch
+    if not all(bool(torch.isfinite(t).all()) for _, t in _leaf_paths(state)):
+        raise AssertionError(f"{name}: non-finite server parameters")
+
+
+def phase_systime_images(data, smi: str) -> None:
+    """(a) The paper's Table 1 setting on full-width PreResNet-20 (phase
+    5's 100 clients, 10 a round, ``fair``), under deterministic cuDNN and
+    algorithms: ``AsyncEngine(mode="sync")`` over a zero-latency system
+    equals ``RoundEngine`` bitwise for 2 FeDepth rounds (two
+    ``RoundEngine`` runs first, as the control); then async FeDepth over
+    ``profiles_for_ratios`` (concurrency 10, buffer 5, 4 server versions)
+    run twice (the control), checkpointed every 2 versions, killed after
+    the last checkpoint and resumed from the one before: the state, the
+    history rows and the trace equal the uninterrupted run's.  The
+    checkpoints' aux blobs take the pickle path (``msgpack`` set aside),
+    in a temporary directory removed afterwards.  No kernel launches."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.fl.engine import RoundEngine, SimConfig, build_context
+    from repro_torch.fl.registry import get_strategy
+    from repro_torch.fl.scale import state_store
+    from repro_torch.fl.systime import (AsyncEngine, SystemModel,
+                                        profiles_for_ratios,
+                                        zero_latency_system)
+
+    def ctx(rounds):
+        sim = SimConfig(rounds=rounds, participation=0.1, lr=0.05,
+                        momentum=0.9, local_steps=1, batch_size=64,
+                        scenario="fair", seed=0)
+        return build_context(data, sim, model_cfg=CONFIG)
+
+    def run(name, engine, profile=False):
+        out, launches, _, _ = _systime_run(name, smi, engine, profile)
+        _check_no_launches(name, launches)
+        _check_finite(name, out[0])
+        return out
+
+    log(f"system time and faults (a): FeDepth on {CONFIG.name}, 100 "
+        f"clients")
+    with deterministic():
+        r1 = run("RoundEngine, 2 rounds",
+                 RoundEngine(get_strategy("fedepth"), ctx(2)), True)
+        r2 = run("RoundEngine, 2 rounds (control)",
+                 RoundEngine(get_strategy("fedepth"), ctx(2)))
+        s = run("AsyncEngine sync, zero latency, 2 rounds",
+                AsyncEngine(get_strategy("fedepth"), ctx(2), mode="sync",
+                            system=zero_latency_system(100)), True)
+        _same_run("RoundEngine control", r1, r2)
+        _same_run("AsyncEngine sync (zero latency) vs RoundEngine", r1, s)
+        if any(r.sim_seconds != 0.0 for r in s[1]):
+            raise AssertionError(f"zero latency priced time: {s[1]}")
+
+        def async_engine(**kw):
+            c = ctx(4)
+            return AsyncEngine(get_strategy("fedepth"), c, mode="async",
+                               concurrency=10, buffer_size=5,
+                               system=SystemModel(profiles_for_ratios(
+                                   c.ratios)), **kw)
+
+        a1 = run("async, 4 versions", async_engine(), True)
+        a2 = run("async, 4 versions (control)", async_engine())
+        _same_run("async control", a1, a2)
+        stale = max(e[4] for e in a1[2] if e[0] == "finish")
+        d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        saved, state_store.msgpack = state_store.msgpack, None
+        try:
+            kw = dict(checkpoint_every=2, checkpoint_dir=d)
+            b = run("async, checkpointed every 2 versions",
+                    async_engine(**kw))
+            no_ckpt = [e for e in b[2] if e[0] != "checkpoint"]
+            _same_run("async checkpointed vs uninterrupted", a1,
+                      (b[0], b[1], no_ckpt))
+            killed = _kill_latest(d)
+            c = run(f"async, resumed after version {killed}",
+                    async_engine(resume=True, **kw))
+            _same_run("async resumed vs checkpointed", b, c)
+            _same_run("async resumed vs uninterrupted", a1,
+                      (c[0], c[1], [e for e in c[2]
+                                    if e[0] != "checkpoint"]))
+        finally:
+            state_store.msgpack = saved
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"  async: {len(a1[2])} events, largest staleness merged {stale}, "
+        f"checkpoint blobs through pickle; sim seconds "
+        f"{[round(r.sim_seconds, 3) for r in a1[1]]}")
+    if stale < 1:
+        raise AssertionError("async: no stale result was merged")
+    gc.collect()
+
+
+def _reckon_async(cfg, decomps, concurrency: int, buffer_size: int):
+    """The async run's reckoned peak (bytes) and how: the larger of a
+    dispatch's training (the state, the largest block's training memory
+    as in :func:`_reckon`, and the ``concurrency - 1`` parked plus
+    ``buffer_size - 1`` buffered payloads of a whole model) and the merge
+    (the state, ``concurrency + buffer_size - 1`` payloads, one cached
+    trained-mask per distinct decomposition, a soft mask per merged
+    result, the anchor's ones, the new state, and four of the largest
+    leaf for the per-leaf temporaries)."""
+    from repro_torch.core.memory_model import lm_memory
+    mem = lm_memory(cfg, 4, 256)
+    params = 4 * cfg.param_count()
+    block = max(mem.block_train_bytes(lo, hi, optimizer_slots=1)
+                for d in decomps for lo, hi in d.blocks)
+    masks = len({(d.blocks, d.skipped_prefix) for d in decomps})
+    leaf = 4 * cfg.vocab_size * cfg.d_model
+    train = params + block + (concurrency + buffer_size - 2) * params
+    held = concurrency + buffer_size - 1
+    merge = (1 + held + masks + buffer_size + 2) * params + 4 * leaf
+    return max(train, merge), (
+        f"the larger of {params / GIB:.2f} GiB state + {block / GIB:.2f} "
+        f"GiB the largest block's training + {concurrency + buffer_size - 2}"
+        f" held payloads, and the merge's {1 + held + masks + buffer_size + 2}"
+        f" models ({held} payloads, {masks} cached masks, {buffer_size} "
+        f"soft masks, the anchor's ones, the new state) + 4 x "
+        f"{leaf / GIB:.2f} GiB temporaries")
+
+
+def phase_systime_lm(smi: str) -> dict:
+    """(b) mamba2-370m at published widths and all 48 layers, FeDepth over
+    6 clients with phase 4's data and batch: an async run over
+    ``profiles_for_ratios`` (concurrency 3, buffer 2, 2 server versions),
+    its peak held to :func:`_reckon_async`; then, under deterministic
+    algorithms, 3 sync rounds over the same system under the HEAVY fault
+    plan with ``resample`` degradation, run twice (the control),
+    checkpointed every round, killed after round 2 and resumed: state,
+    history rows and trace equal the uninterrupted run's, the state
+    finite, a fault or quarantine in the trace.  Every run must launch
+    K1 and K3; returns each run's launches and launches by shape."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fl.engine import SimConfig
+    from repro_torch.fl.faults import FaultPlan, ResiliencePolicy
+    from repro_torch.fl.registry import get_strategy
+    from repro_torch.fl.scale import state_store
+    from repro_torch.fl.seq import build_lm_context, build_seq_data
+    from repro_torch.fl.systime import (AsyncEngine, SystemModel,
+                                        profiles_for_ratios)
+    cfg = get_config(SYSTIME_ARCH)
+    data = build_seq_data(6, n_per_client=16, n_test=16,
+                          vocab_size=cfg.vocab_size, seq_len=256, seed=0)
+    log(f"system time and faults (b): FeDepth on {cfg.name}, "
+        f"{cfg.num_layers} layers (all), d_model {cfg.d_model}, 6 clients")
+    by_run = {}
+    needed = ("chunked_cross_entropy", "mamba2_scan")
+
+    def engine(rounds, **kw):
+        sim = SimConfig(rounds=rounds, participation=0.5, lr=0.05,
+                        momentum=0.9, local_steps=1, batch_size=4,
+                        scenario="fair", seed=0)
+        ctx = build_lm_context(data, sim, cfg)
+        return AsyncEngine(get_strategy("fedepth"), ctx,
+                           system=SystemModel(profiles_for_ratios(
+                               ctx.ratios)), **kw)
+
+    def run(name, eng, profile=False):
+        out, launches, shapes, peak = _systime_run(name, smi, eng, profile)
+        missing = [k for k in needed if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels {missing} were not "
+                                 f"launched: {launches}")
+        _check_finite(name, out[0])
+        by_run[SYSTIME_ARCH, f"systime {name}"] = (launches, shapes)
+        return out, peak
+
+    eng = engine(2, mode="async", concurrency=3, buffer_size=2)
+    reckoned, how = _reckon_async(cfg, eng.ctx.decomps, 3, 2)
+    log(f"  async reckoned peak {reckoned / GIB:.2f} GiB ({how})")
+    a, peak = run("async fedepth, 2 versions", eng, True)
+    _held_to_reckoning("  async fedepth", peak, reckoned, gate=False)
+    if peak > reckoned:
+        raise AssertionError(f"async: peak {peak / GIB:.2f} GiB over its "
+                             f"reckoning {reckoned / GIB:.2f} GiB")
+    log(f"  async trace: {[e[:3] + (e[4],) for e in a[2]]}")
+    del a, eng
+    gc.collect()
+
+    kw = dict(mode="sync", faults=FaultPlan(**HEAVY),
+              resilience=ResiliencePolicy(degradation="resample"))
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with deterministic():
+            f1, _ = run("sync fedepth faulted, 3 rounds", engine(3, **kw),
+                        True)
+            f2, _ = run("sync fedepth faulted, 3 rounds (control)",
+                        engine(3, **kw))
+            _same_run("faulted control", f1, f2)
+            del f2
+            ck = dict(checkpoint_every=1, checkpoint_dir=d,
+                      checkpoint_keep=2)
+            b, _ = run("sync fedepth faulted, checkpointed every round",
+                       engine(3, **kw, **ck))
+            _same_run("faulted checkpointed vs uninterrupted", f1,
+                      (b[0], b[1], [e for e in b[2]
+                                    if e[0] != "checkpoint"]))
+            killed = _kill_latest(d)
+            c, _ = run(f"sync fedepth faulted, resumed after round "
+                       f"{killed}", engine(3, **kw, **ck, resume=True))
+            _same_run("faulted resumed vs checkpointed", b, c)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    faults = _fault_events(f1[2])
+    log(f"  faulted: fault events {faults}, history "
+        f"{[(r.round, r.accuracy, r.comm_bytes, round(r.sim_seconds, 3)) for r in f1[1]]}"
+        f", aux blobs through {'msgpack' if state_store.msgpack else 'pickle'}")
+    if not faults:
+        raise AssertionError("faulted: no fault or quarantine in the trace")
+    del f1, b, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_run
+
+
+def phase_systime(data, smi: str) -> dict:
+    """Phase 8 (run after phase 5, on its data)."""
+    phase_systime_images(data, smi)
+    return phase_systime_lm(smi)
+
+
 K1_K2 = ("chunked_cross_entropy", "flash_attention")
 PATHS = (
     # (arch, layers, kernels that must launch on the path, method)
@@ -2570,6 +2963,8 @@ def attribute_launches(kernels: list, checked: dict, by_run: dict) -> None:
 
 
 def main() -> int:
+    # phase 8's deterministic algorithms need this before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2589,7 +2984,10 @@ def main() -> int:
     by_run["whisper-small", "fedepth client update"] = \
         phase_whisper_client()
     by_run[MOE_ARCH, "fedepth client update"] = phase_moe_client()
-    phase_comm(phase_images())
+    data = phase_images()
+    phase_comm(data)
+    by_run.update(phase_systime(data, smi))
+    del data
     phase_vit()
     for arch, runs in phase_serving().items():
         for stage, run in runs.items():

@@ -71,6 +71,16 @@ class BlockRunner:
     family: str = "?"
 
 
+def lm_prefix_stable(cfg) -> bool:
+    """``BlockRunner.prefix_stable`` of an LM config's runner.  A tied
+    head trains the embedding table, the hybrid family's shared block
+    (trained with the head) runs inside every group, and whisper's head
+    holds its tied embedding and ``enc_norm``: each reaches the prefix
+    forward, so buffers are re-buffered per subproblem."""
+    return not (cfg.tie_embeddings or cfg.family == "hybrid"
+                or cfg.is_encoder_decoder)
+
+
 def lm_runner(lm, head: str = "skip") -> BlockRunner:
     """Runner over an ``LM`` (``repro_torch.models``) of any ported
     family.  The depth units live under ``params["units"]`` (dense, moe,
@@ -144,12 +154,8 @@ def lm_runner(lm, head: str = "skip") -> BlockRunner:
                 out[k] = v
         return out
 
-    # a tied head trains the embedding table, and the hybrid family's
-    # shared block (trained with the head) runs inside every group: both
-    # reach the prefix forward, so buffers are re-buffered per subproblem
-    stable = not cfg.tie_embeddings and cfg.family != "hybrid"
     return BlockRunner(lm.num_depth_units, embed, apply_units, head_loss,
-                       split, merge, prefix_stable=stable,
+                       split, merge, prefix_stable=lm_prefix_stable(cfg),
                        family=cfg.family)
 
 
@@ -214,7 +220,8 @@ def _whisper_runner(lm) -> BlockRunner:
         return out
 
     return BlockRunner(E + cfg.num_layers, embed, apply_units, head_loss,
-                       split, merge, prefix_stable=False, family="whisper")
+                       split, merge, prefix_stable=lm_prefix_stable(cfg),
+                       family="whisper")
 
 
 # ---- ResNet adapter -------------------------------------------------------
@@ -541,9 +548,10 @@ def full_model_loss(runner: BlockRunner, params, batch):
 # --------------------------------------------------------------------------
 # stacked (vmap-over-clients) execution — substrate of VectorizedScheduler
 # --------------------------------------------------------------------------
-# families whose runners call the port's kernels (K1–K4): their autograd
-# Functions have no vmap rules yet (ROADMAP.md, queue 1, item 12)
-_KERNEL_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "whisper")
+# the image runners' families: every other runner (each LM family) calls
+# the port's kernels (K1–K4), whose autograd Functions have no vmap rules
+# yet (ROADMAP.md, queue 1, item 12)
+_IMAGE_FAMILIES = ("resnet", "vit")
 
 
 def broadcast_tree(tree, group: int):
@@ -624,7 +632,7 @@ def make_group_update(runner: BlockRunner, blocks, *, lr: float,
     units when ``runner.prefix_stable``.  The returned function trains
     clones of each block's split and returns a new stacked tree; the
     stacked parameters it is given are not written."""
-    if runner.family in _KERNEL_FAMILIES:
+    if runner.family not in _IMAGE_FAMILIES:
         raise NotImplementedError(
             f"the stacked (vectorized) path for {runner.family!r} LM "
             f"runners waits for vmap rules on the K1-K4 autograd Functions "

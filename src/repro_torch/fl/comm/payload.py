@@ -168,6 +168,32 @@ class CommChannel:
                 result.payload = result.payload.decode()
         return result
 
+    def snapshot_uplink(self, client_id: int):
+        """Pre-encode error-feedback state, for engines whose delivery
+        can still fail after encoding (a deadline miss, a quarantine)."""
+        return self.ef.snapshot(client_id)
+
+    def rollback_uplink(self, client_id: int, snap) -> None:
+        """Undo :meth:`encode_result`'s residual update for a payload the
+        server discarded (``ErrorFeedback.restore``)."""
+        self.ef.restore(client_id, snap)
+
+    # ------------------------------------------------ checkpoint / resume
+    def export_state(self) -> dict:
+        """The channel's per-client maps in checkpointable form: the
+        error-feedback residuals and the delta downlink's last-seen
+        tracker, both part of the bitwise resume contract."""
+        return {"ef": self.ef.export_state(),
+                "last_sent": [[k, self._last_sent[k]]
+                              for k in sorted(self._last_sent, key=repr)]}
+
+    def import_state(self, state: dict) -> None:
+        if state.get("ef") is not None:
+            self.ef.import_state(state["ef"])
+        self._last_sent.clear()
+        for k, v in state.get("last_sent", []):
+            self._last_sent[k] = v
+
     # ------------------------------------------------------------ downlink
     def downlink_bytes(self, strategy, ctx, state, client_id: int) -> int:
         """Wire size of what the server ships ``client_id`` this dispatch

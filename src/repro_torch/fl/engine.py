@@ -12,16 +12,21 @@ prepares the paper's image protocol; ``fl/seq.py`` the LM one.
 
 The engine runs the sequential (default) or the vectorized scheduler,
 and routes every uplink and downlink byte through a
-:class:`~repro_torch.fl.comm.CommChannel` (``codec`` / ``downlink``);
-no faults, no checkpoints and no telemetry.  The reference's other knobs
-are accepted by name and raise ``NotImplementedError`` when set — never
-silently ignored.
+:class:`~repro_torch.fl.comm.CommChannel` (``codec`` / ``downlink``).
+``faults`` / ``resilience`` (:mod:`repro_torch.fl.faults`) inject seeded
+client faults and turn on retries, quarantine and cohort-shortfall
+degradation; ``checkpoint_every`` / ``checkpoint_dir`` /
+``checkpoint_keep`` / ``resume`` write crash-safe checkpoints and
+continue a killed run bitwise.  The system-time engine is
+:class:`repro_torch.fl.systime.AsyncEngine`.  The reference's telemetry
+and history-sink knobs are accepted by name and raise
+``NotImplementedError`` when set — never silently ignored.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,7 +38,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.comm import CommChannel
 from repro_torch.fl.sampling import (CohortSampler, UniformSampler,
                                      make_scheduler)
-from repro_torch.fl.strategy import Context, FLStrategy, wire_bytes
+from repro_torch.fl.strategy import ClientResult, Context, FLStrategy, \
+    wire_bytes
 
 SCENARIOS: Dict[str, Tuple[float, ...]] = {
     "fair": (1 / 6, 1 / 3, 1 / 2, 1.0),
@@ -149,10 +155,67 @@ def _resolve_prefix_cache(spec) -> bool:
     return spec == "on"
 
 
-# the reference engine's other knobs; each is off at None (obs also at
-# "off" / False), and only checkpoint_keep is harmless on its own
-_UNPORTED = ("history_sink", "obs", "faults", "resilience",
-             "checkpoint_every", "checkpoint_dir", "resume")
+def apply_prefix_cache(ctx: Context, spec) -> Context:
+    """Resolve a ``prefix_cache`` knob onto a context: ``ctx`` itself when
+    the contract already matches, else a shallow copy with the flag
+    flipped (a shared context is never mutated)."""
+    resolved = _resolve_prefix_cache(spec)
+    if resolved == ctx.prefix_cache:
+        return ctx
+    return dataclasses.replace(ctx, prefix_cache=resolved)
+
+
+def refuse_unported(history_sink=None, obs=None, state_store=None) -> None:
+    """The reference engines' knobs that wait for later items: each is off
+    at ``None`` (``obs`` also at "off" / False) and raises, naming its
+    item, when set."""
+    if history_sink is not None:
+        raise NotImplementedError(
+            "history_sink= (the JSONL history stream) waits for the scale "
+            "layer (ROADMAP item 9)")
+    if state_store is not None:
+        raise NotImplementedError(
+            "state_store= (spilling in-flight snapshots) waits for the "
+            "scale layer (ROADMAP item 9)")
+    if obs not in (None, False, "off"):
+        raise NotImplementedError(
+            "obs= (telemetry) waits for the observability layer (ROADMAP "
+            "item 10)")
+
+
+def resolve_faults(faults, resilience):
+    """Resolve the engines' ``faults=`` / ``resilience=`` knobs into one
+    ``FaultRuntime``.  With both off it injects nothing, validates
+    nothing and degrades nothing (``FaultRuntime.enabled`` is False)."""
+    from repro_torch.fl.faults import FaultRuntime
+    return FaultRuntime(faults, resilience)
+
+
+def resolve_checkpointing(every, ckpt_dir, keep, resume):
+    """Resolve the engines' checkpoint / resume knobs into
+    ``(EngineCheckpointer | None, resume_dir | None)``."""
+    if every is not None and ckpt_dir is None:
+        raise ValueError("checkpoint_every requires checkpoint_dir")
+    resume_dir = None
+    if resume:
+        resume_dir = resume if isinstance(resume, str) else ckpt_dir
+        if resume_dir is None:
+            raise ValueError("resume=True requires checkpoint_dir "
+                             "(or pass the directory as resume=)")
+    if every is None and resume_dir is None:
+        return None, None
+    from repro_torch.fl.faults import EngineCheckpointer
+    ckpt = EngineCheckpointer(ckpt_dir, every, keep=keep) \
+        if every is not None else None
+    return ckpt, resume_dir
+
+
+def load_resume(resume_dir, device):
+    """The newest usable checkpoint pair in ``resume_dir`` as
+    ``(round_idx, server_state, aux)``, its tensors on ``device``, or
+    ``None`` (a fresh start when the directory is empty)."""
+    from repro_torch.fl.faults import EngineCheckpointer
+    return EngineCheckpointer(resume_dir, every=1).load_latest(device)
 
 
 class RoundEngine:
@@ -163,7 +226,13 @@ class RoundEngine:
                  sampler: Optional[CohortSampler] = None,
                  scheduler=None, prefix_cache="on", codec="none",
                  downlink: str = "full",
-                 channel: Optional[CommChannel] = None, **unported):
+                 channel: Optional[CommChannel] = None,
+                 history_sink=None, obs=None,
+                 faults=None, resilience=None,
+                 checkpoint_every: Optional[int] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_keep: int = 3,
+                 resume: Union[bool, str, None] = None):
         """``prefix_cache`` ("on" / "off") and ``scheduler`` (a name of
         ``fl.sampling.SCHEDULERS`` or an instance; sequential by default)
         as in the reference.  ``codec`` (a name of ``fl.comm.CODECS`` or
@@ -172,21 +241,27 @@ class RoundEngine:
         error feedback and the history counts the exact encoded bytes;
         ``codec="none"`` with ``downlink="full"`` is the channel-free
         engine exactly.  A prebuilt ``channel`` wins over the two knobs.
-        The reference's other knobs (``history_sink``, ``obs``,
-        ``faults``, ``resilience``, ``checkpoint_*``, ``resume``) raise
-        ``NotImplementedError`` when set."""
-        for name, value in unported.items():
-            if name not in _UNPORTED + ("checkpoint_keep",):
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if name in _UNPORTED and value not in (None, False, "off"):
-                raise NotImplementedError(f"{name}= is not ported yet")
+
+        ``faults`` (a ``fl.faults.FaultPlan``) injects seeded client
+        faults into every dispatch; ``resilience`` (a
+        ``ResiliencePolicy``) turns on retry-with-backoff, update
+        quarantine and cohort-shortfall degradation.  Both ``None`` keep
+        the fault-free round bitwise.  ``checkpoint_every`` /
+        ``checkpoint_dir`` write a crash-safe checkpoint pair every N
+        rounds (server state + rng / channel / validator / history aux,
+        ``checkpoint_keep`` of them retained); ``resume`` (``True`` =
+        from ``checkpoint_dir``, or a directory) continues a killed run
+        bitwise.  ``history_sink`` and ``obs`` raise
+        ``NotImplementedError`` when set (ROADMAP items 9 and 10)."""
+        refuse_unported(history_sink=history_sink, obs=obs)
         self.strategy = strategy
-        resolved = _resolve_prefix_cache(prefix_cache)
-        self.ctx = ctx if resolved == ctx.prefix_cache \
-            else dataclasses.replace(ctx, prefix_cache=resolved)
+        self.ctx = apply_prefix_cache(ctx, prefix_cache)
         self.sampler = sampler or UniformSampler()
         self.scheduler = make_scheduler(scheduler)
         self.channel = channel or CommChannel(codec, downlink)
+        self._faultrt = resolve_faults(faults, resilience)
+        self._ckpt, self._resume_dir = resolve_checkpointing(
+            checkpoint_every, checkpoint_dir, checkpoint_keep, resume)
 
     def default_batch_fn(self) -> Callable[[int], list]:
         return default_batch_fn(self.ctx)
@@ -194,20 +269,62 @@ class RoundEngine:
     def run_round(self, state, round_idx: int,
                   batch_fn: Callable[[int], list]):
         """One round: broadcast (downlink accounting) -> sample -> local
-        updates -> uplink encode -> decode -> aggregate.  Returns
-        (new_state, up_bytes, down_bytes)."""
-        ctx, chan = self.ctx, self.channel
-        cohort = self.sampler.sample(ctx, round_idx)
-        down = sum(chan.downlink_bytes(self.strategy, ctx, state, int(k))
+        updates -> per client: fault resolution (payload damage / retry
+        loop / give up) -> EF snapshot -> encode -> decode -> quarantine
+        validation (a rejected update rolls the EF residual back, so its
+        transmitted mass is retransmitted later; its bytes still count)
+        -> aggregate the survivors.  Returns (new_state, up_bytes,
+        down_bytes).  A cohort shortfall is handled by the policy's
+        degradation mode; an empty surviving set leaves the state as it
+        is (a no-op round, never a crash).  With ``faults`` and
+        ``resilience`` off every step past the local update passes its
+        result through, and the round is the fault-free one."""
+        ctx, chan, rt = self.ctx, self.channel, self._faultrt
+        cohort = [int(k) for k in self.sampler.sample(ctx, round_idx)]
+        target = len(cohort)
+        cohort = rt.overprovision(ctx, cohort)
+        down = sum(chan.downlink_bytes(self.strategy, ctx, state, k)
                    for k in cohort)
-        results = self.scheduler.run(ctx, self.strategy, state, cohort,
-                                     batch_fn)
-        results = [chan.encode_result(self.strategy, ctx, state, int(k), r)
-                   for k, r in zip(cohort, results)]
-        comm = sum(r.comm_bytes if r.comm_bytes is not None
-                   else wire_bytes(r.payload) for r in results)
-        results = [chan.decode_result(r) for r in results]
-        return self.strategy.aggregate(ctx, state, results), comm, down
+        comm = 0
+        kept: List[ClientResult] = []
+
+        def process(clients) -> int:
+            nonlocal comm
+            delivered = 0
+            results = self.scheduler.run(ctx, self.strategy, state,
+                                         clients, batch_fn)
+            for k, res in zip(clients, results):
+                res.client_id = k
+                outcome = rt.resolve(
+                    round_idx, k, res,
+                    lambda k=k: self.strategy.client_update(
+                        ctx, state, k, batch_fn(k)))
+                if not outcome.delivered:
+                    continue
+                ef_snap = chan.snapshot_uplink(k)
+                enc = chan.encode_result(self.strategy, ctx, state, k,
+                                         outcome.result)
+                comm += enc.comm_bytes if enc.comm_bytes is not None \
+                    else wire_bytes(enc.payload)
+                dec = chan.decode_result(enc)
+                verdict = rt.validate_one(dec.payload, state)
+                if verdict is not None:
+                    chan.rollback_uplink(k, ef_snap)
+                    continue
+                kept.append(dec)
+                delivered += 1
+            return delivered
+
+        missing = target - process(cohort)
+        if missing > 0:
+            extra = rt.resample(ctx, cohort, missing)
+            if extra:
+                down += sum(chan.downlink_bytes(self.strategy, ctx,
+                                                state, k) for k in extra)
+                process(extra)
+        if kept:
+            state = self.strategy.aggregate(ctx, state, kept)
+        return state, comm, down
 
     def run(self, *, initial_state=None,
             batch_fn: Optional[Callable[[int], list]] = None,
@@ -216,18 +333,34 @@ class RoundEngine:
         """Run ``sim.rounds`` rounds, evaluating every ``eval_every``
         rounds and on the last.  ``initial_state`` skips ``init_state``
         but not the strategy's ``setup``.  Returns (final_state, history)
-        with one record per eval checkpoint."""
+        with one record per eval checkpoint.
+
+        With ``resume=`` set and a usable checkpoint present, the run
+        continues from it: server state (on the context's device), rng
+        stream, channel state, validator calibration and the history so
+        far restore to the checkpointed round's, and the loop picks up at
+        the next round, reproducing the uninterrupted run bitwise."""
         ctx = self.ctx
         setup = getattr(self.strategy, "setup", None)
         if setup is not None:
             setup(ctx)
-        state = initial_state if initial_state is not None \
-            else self.strategy.init_state(ctx)
-        batch_fn = batch_fn or self.default_batch_fn()
+        resumed = load_resume(self._resume_dir, ctx.device) \
+            if self._resume_dir is not None else None
         history: List[RoundRecord] = []
-        bytes_acc, down_acc = 0, 0
+        start_rd, bytes_acc, down_acc = 0, 0, 0
+        if resumed is not None:
+            rd0, state, aux = resumed
+            start_rd = rd0 + 1
+            bytes_acc = int(aux.get("bytes_acc", 0))
+            down_acc = int(aux.get("down_acc", 0))
+            history = [RoundRecord(*r) for r in aux.get("history", [])]
+            self._import_aux(aux)
+        else:
+            state = initial_state if initial_state is not None \
+                else self.strategy.init_state(ctx)
+        batch_fn = batch_fn or self.default_batch_fn()
         t_last = time.perf_counter()
-        for rd in range(ctx.sim.rounds):
+        for rd in range(start_rd, ctx.sim.rounds):
             state, comm, down = self.run_round(state, rd, batch_fn)
             bytes_acc += comm
             down_acc += down
@@ -239,4 +372,28 @@ class RoundEngine:
                 history.append(RoundRecord(rd + 1, acc, now - t_last,
                                            bytes_acc, 0.0, down_acc))
                 t_last, bytes_acc, down_acc = now, 0, 0
+            if self._ckpt is not None and self._ckpt.due(rd):
+                self._ckpt.save(rd, state, self._export_aux(
+                    history, bytes_acc, down_acc))
         return state, history
+
+    # ----------------------------------------------- checkpoint / resume
+    def _export_aux(self, history, bytes_acc: int, down_acc: int) -> dict:
+        """Everything bitwise continuation needs beyond the server state:
+        the shared rng stream, the channel's EF residuals and downlink
+        tracker, the validator's norm calibration, and the history so
+        far."""
+        return {
+            "kind": "round",
+            "rng": self.ctx.rng.bit_generator.state,
+            "channel": self.channel.export_state(),
+            "faultrt": self._faultrt.export_state(),
+            "history": [list(r) for r in history],
+            "bytes_acc": int(bytes_acc), "down_acc": int(down_acc),
+        }
+
+    def _import_aux(self, aux: dict) -> None:
+        self.ctx.rng.bit_generator.state = aux["rng"]
+        self.channel.import_state(aux.get("channel") or {})
+        if aux.get("faultrt"):
+            self._faultrt.import_state(aux["faultrt"])

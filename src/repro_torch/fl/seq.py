@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.blockwise import lm_prefix_stable
 from repro_torch.core.decomposition import decompose
 from repro_torch.core.memory_model import lm_memory
 from repro_torch.device import DeviceLike, resolve_device
@@ -100,4 +101,5 @@ def build_lm_context(data: FederatedSeqData, sim: SimConfig,
         sim=sim, num_clients=num_clients, sizes=data.client_sizes(),
         rng=np.random.default_rng(sim.seed), seed=sim.seed, device=dev,
         model_cfg=model_cfg, mem=mem, ratios=ratios, budgets=budgets,
-        decomps=[decompose(mem, int(b)) for b in budgets], data=data)
+        decomps=[decompose(mem, int(b)) for b in budgets], data=data,
+        prefix_stable=lm_prefix_stable(model_cfg))

@@ -16,8 +16,8 @@ Two config families share the class:
 
 On the wire the trained tree is delta-coded against the server's copy
 (``wire_parts``), and a depth-d client's sliced downlink is its prefix
-(``downlink_tree``).  The reference's ``client_work`` waits for system
-time.
+(``downlink_tree``).  Under system time a client is priced as one
+end-to-end prefix block (``client_work``).
 """
 from __future__ import annotations
 
@@ -77,6 +77,11 @@ class DepthFLStrategy:
         floored at the first exit (2 blocks; 1 layer on an LM)."""
         floor = 1 if self._is_lm(ctx) else 2
         return max(self.depths[client_id], floor)
+
+    def client_work(self, ctx, client_id):
+        """System-time pricing: one end-to-end prefix of ``depth`` blocks
+        — exactly a single-block FeDepth schedule [0, depth)."""
+        return _prefix(self.client_depth(ctx, client_id))
 
     def client_update(self, ctx, state, client_id, batches):
         depth = self.client_depth(ctx, client_id)

@@ -3,8 +3,10 @@ lowest-common-denominator baseline (McMahan et al. 2017; port of
 ``repro.fl.strategies.fedavg``): every client trains the SAME slimmed
 model, so no heterogeneity machinery at all.  That homogeneity makes it
 trivially batchable: the whole cohort is one vectorization group.  On a
-ViT config it is paper Fig. 7's x1/6 baseline.  The shardable and async
-hooks wait for their slices.
+ViT config it is paper Fig. 7's x1/6 baseline.  Under system time every
+client is priced as that subnet (``client_work``) and a stale result's
+lost weight anchors on the server (``aggregate_async``).  The shardable
+hooks wait for their slice.
 """
 from __future__ import annotations
 
@@ -65,6 +67,23 @@ class FedAvgStrategy:
     def aggregate(self, ctx, state, results):
         return aggregation.fedavg([r.payload for r in results],
                                   [r.weight for r in results])
+
+    def aggregate_async(self, ctx, state, results, stalenesses, *,
+                        alpha=0.5):
+        """Anchored staleness discount: the weight mass a stale result
+        loses, ``w_k * (1 - s(tau_k))``, goes to the CURRENT global
+        params instead of renormalizing over the cohort — stale mass
+        reverts to the server, fresh mass moves it.  All-zero staleness
+        makes the anchor weight 0 and this IS ``aggregate``."""
+        from repro_torch.fl.systime.staleness import polynomial_discount
+        disc = [polynomial_discount(t, alpha) for t in stalenesses]
+        payloads = [r.payload for r in results]
+        weights = [r.weight * s for r, s in zip(results, disc)]
+        anchor = sum(r.weight * (1.0 - s) for r, s in zip(results, disc))
+        if anchor > 0.0:
+            payloads.append(state)
+            weights.append(anchor)
+        return aggregation.fedavg(payloads, weights)
 
     def eval_model(self, ctx, state, x, y):
         return common.image_accuracy(self.sub_cfg, state, x, y)

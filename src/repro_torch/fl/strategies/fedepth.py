@@ -39,6 +39,7 @@ from repro_torch.fl.registry import register
 from repro_torch.fl.strategies import common
 from repro_torch.fl.strategy import ClientResult, wire_bytes
 from repro_torch.models import build, image_model, resnet, vit
+from repro_torch.tree import tree_map
 
 
 @register("fedepth")
@@ -203,6 +204,58 @@ class FedepthStrategy:
                 state, [r.payload[0] for r in results], ws,
                 [r.payload[1] for r in results])
         return aggregation.fedavg([r.payload for r in results], ws)
+
+    def aggregate_async(self, ctx, state, results, stalenesses, *,
+                        alpha=0.5):
+        """PER-BLOCK staleness merge: a FeDepth payload is a full model,
+        but only the leaves inside the client's trained blocks carry
+        fresh gradient information — the rest is the stale broadcast copy
+        riding along.  Discount the two differently via soft masks:
+        trained leaves by ``s(tau_k)``, carried leaves by ``s(2 tau_k)``
+        (under ``masked_aggregation`` carried leaves are excluded
+        outright, matching the sync path).  The lost weight mass anchors
+        on the current global params.  All-zero staleness reduces every
+        factor to 1 (or the binary mask) and the anchor to 0 — i.e.
+        ``aggregate``, to float tolerance.
+
+        The trained-mask depends on the decomposition only, so one mask
+        the size of the model is cached per distinct decomposition in
+        ``ctx.caches["fedepth_async_masks"]``.  Falls back to the
+        weight-discount default when results carry no ``client_id`` /
+        the context has no decompositions."""
+        from repro_torch.fl.systime.staleness import (
+            default_aggregate_async, polynomial_discount)
+        if ctx.decomps is None or any(r.client_id is None for r in results):
+            return default_aggregate_async(self, ctx, state, results,
+                                           stalenesses, alpha=alpha)
+        mask_cache = ctx.caches.setdefault("fedepth_async_masks", {})
+        locals_, masks, weights = [], [], []
+        anchor = 0.0
+        for r, tau in zip(results, stalenesses):
+            s = polynomial_discount(tau, alpha)
+            if self.masked_aggregation:
+                local, tm = r.payload
+                soft = tree_map(lambda m, _s=s: m * _s, tm)
+            else:
+                local = r.payload
+                dec = ctx.decomps[r.client_id]
+                key = (dec.blocks, dec.skipped_prefix)
+                if key not in mask_cache:   # mask depends only on dec
+                    mask_cache[key] = aggregation.trained_mask_for(
+                        state, dec, self.runner)
+                tm = mask_cache[key]
+                s2 = polynomial_discount(2 * tau, alpha)
+                soft = tree_map(
+                    lambda m, _s=s, _s2=s2: m * _s + (1.0 - m) * _s2, tm)
+            locals_.append(local)
+            masks.append(soft)
+            weights.append(r.weight)
+            anchor += r.weight * (1.0 - s)
+        if anchor > 0.0:
+            locals_.append(state)
+            masks.append(tree_map(torch.ones_like, state))
+            weights.append(anchor)
+        return aggregation.aggregate_masked(state, locals_, weights, masks)
 
     def eval_model(self, ctx, state, x, y):
         if isinstance(ctx.model_cfg, ModelConfig):

@@ -7,8 +7,10 @@ slice covers it.
 Clients sharing a width ratio train the identical subnet, so they batch
 as one vectorization group (slice once, vmap the local SGD, pad each).
 On the wire only the width slice crosses (``wire_parts``' mask, and the
-sliced downlink's ``downlink_tree``).  The reference's ``client_work``
-and ``aggregate_async`` wait for system time.
+sliced downlink's ``downlink_tree``).  Under system time a client is
+priced as its width slice (``client_work``), and a stale result's lost
+weight joins the per-coordinate average as a full-coverage anchor on the
+server (``aggregate_async``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,11 @@ def _slice_coords(mask) -> int:
 class HeteroFLStrategy:
     def init_state(self, ctx):
         return resnet.init(ctx.seed, ctx.model_cfg, device=ctx.device)
+
+    def client_work(self, ctx, client_id):
+        """System-time pricing: a width slice, never the FeDepth
+        blocks."""
+        return float(min(ctx.ratios[client_id], 1.0))
 
     @staticmethod
     def _wire_for(ctx, ratio: float, mask) -> int:
@@ -95,6 +102,26 @@ class HeteroFLStrategy:
                                   [r.payload[0] for r in results],
                                   [r.payload[1] for r in results],
                                   [r.weight for r in results])
+
+    def aggregate_async(self, ctx, state, results, stalenesses, *,
+                        alpha=0.5):
+        """Coverage-aware staleness discount: each client's nested-slice
+        weight is scaled by ``s(tau_k)`` inside the per-coordinate
+        average, and the lost mass joins as a full-coverage anchor on the
+        current global params — coordinates covered only by stale slices
+        drift server-ward instead of snapping to stale values.  Zero
+        staleness => anchor 0 => exactly ``aggregate``."""
+        from repro_torch.fl.systime.staleness import polynomial_discount
+        disc = [polynomial_discount(t, alpha) for t in stalenesses]
+        padded = [r.payload[0] for r in results]
+        masks = [r.payload[1] for r in results]
+        weights = [r.weight * s for r, s in zip(results, disc)]
+        anchor = sum(r.weight * (1.0 - s) for r, s in zip(results, disc))
+        if anchor > 0.0:
+            padded.append(state)
+            masks.append(tree_map(torch.ones_like, state))
+            weights.append(anchor)
+        return heterofl_aggregate(state, padded, masks, weights)
 
     def eval_model(self, ctx, state, x, y):
         return common.image_accuracy(ctx.model_cfg, state, x, y)

@@ -6,8 +6,8 @@ budget; the global model is the logit-mean ensemble.
 A client's base-net subset is drawn from the shared stream AFTER its
 batches (the scheduler draws the batches first), in the reference's
 order.  On the wire each trained base net is delta-coded against the
-server's copy, tagged with the base ids.  The reference's
-``client_work`` waits for system time.
+server's copy, tagged with the base ids.  Under system time a client is
+priced at a width-equivalent ratio of its base nets (``client_work``).
 """
 from __future__ import annotations
 
@@ -25,6 +25,15 @@ class SplitMixStrategy:
         base_r = min(min(SCENARIOS[ctx.sim.scenario]), 1.0)
         return SplitMixState(ctx.model_cfg, base_r, ctx.seed,
                              device=ctx.device)
+
+    def client_work(self, ctx, client_id):
+        """System-time pricing, first order: cap ~ r / base_r base nets of
+        width base_r cost ~ cap * base_r^2 = r * base_r in FLOPs, i.e. a
+        width-equivalent ratio of sqrt(r * base_r)."""
+        from repro_torch.fl.engine import SCENARIOS
+        base_r = min(min(SCENARIOS[ctx.sim.scenario]), 1.0)
+        r = float(min(ctx.ratios[client_id], 1.0))
+        return (r * base_r) ** 0.5
 
     def client_update(self, ctx, state, client_id, batches):
         cap = state.capacity(min(ctx.ratios[client_id], 1.0))

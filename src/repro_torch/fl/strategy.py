@@ -5,8 +5,10 @@ Every method is a strategy with four hooks; one ``RoundEngine``
 decomposition assignment, eval cadence and the structured history.  A
 strategy with the two hooks of :class:`BatchableFLStrategy` can be run by
 the vectorized scheduler.  A strategy may also declare its wire
-(``wire_parts`` / ``downlink_tree``, :mod:`repro_torch.fl.comm`).  The
-shardable and async capabilities are not ported.
+(``wire_parts`` / ``downlink_tree``, :mod:`repro_torch.fl.comm`), its
+system-time work (``client_work``, priced by
+:mod:`repro_torch.fl.systime.profiles`) and a staleness-aware merge
+(:class:`AsyncFLStrategy`).  The shardable capability is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ class ClientResult:
     weight: float                       # aggregation weight ~ |D_k|
     comm_bytes: Optional[int] = None    # upload size; None -> engine sizes
                                         # the payload itself
+    client_id: Optional[int] = None     # stamped by the engines so an
+                                        # async merge can look up the
+                                        # sender's decomposition / ratio
 
 
 @dataclasses.dataclass
@@ -61,6 +66,11 @@ class Context:
     # once per distinct batch per subproblem (True) or replay the prefix
     # in every SGD step (False) — ``RoundEngine(prefix_cache=...)``
     prefix_cache: bool = True
+    # whether the active runner's prefix params are stable across
+    # subproblems (``BlockRunner.prefix_stable``): the fallback for direct
+    # ``SystemModel.latency`` callers (``AsyncEngine`` passes the
+    # strategy runner's own flag)
+    prefix_stable: bool = True
 
 
 @runtime_checkable
@@ -108,6 +118,29 @@ class BatchableFLStrategy(FLStrategy, Protocol):
         """Local updates of a group sharing one key: equivalent to
         ``client_update`` per client (modulo float associativity),
         results in ``client_ids`` order."""
+        ...
+
+
+@runtime_checkable
+class AsyncFLStrategy(FLStrategy, Protocol):
+    """Optional capability: staleness-aware asynchronous aggregation.
+
+    :class:`repro_torch.fl.systime.AsyncEngine` buffers results as
+    client-finish events fire and, once the buffer fills, merges them with
+    this hook; each result carries its *staleness*, the number of server
+    versions applied since the snapshot it trained on (FedBuff's
+    measure).  Strategies without the hook get
+    :func:`repro_torch.fl.systime.staleness.default_aggregate_async`:
+    weights discounted by the polynomial rule, then the strategy's own
+    synchronous ``aggregate``."""
+
+    def aggregate_async(self, ctx: Context, state: Any,
+                        results: Sequence["ClientResult"],
+                        stalenesses: Sequence[int], *,
+                        alpha: float = 0.5) -> Any:
+        """Fold one buffered batch of (result, staleness) into the next
+        server state.  MUST equal ``aggregate`` when every staleness is
+        0."""
         ...
 
 

@@ -27,7 +27,12 @@ hybrid decode step; the MoE family's decode at a capacity of 1 an
 expert); reduced whisper's loss, gradients, prefill and decode steps (K2
 non-causal, causal and cross, K1 on the tied head).  The wire: one
 FeDepth round under ``fp16`` and ``qsgd_int8`` on the card against the
-CPU (equal bytes, payloads decoded onto the card).
+CPU (equal bytes, payloads decoded onto the card).  System time and
+checkpoints: a CUDA state and aux blob through ``EngineCheckpointer``
+(device and dtype kept), two async server versions of reduced mamba2
+on the card against the CPU (the same trace, atol 1e-4 / rtol 1e-3), and
+a fault's damage of a mamba2 payload on the card equal to the CPU's,
+bitwise, in fp32 and bf16.
 """
 import dataclasses
 
@@ -794,3 +799,92 @@ def test_whisper_on_the_card_matches_the_cpu(cuda):
         want, cache = lm.decode_step(params, tok, cache, t)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    atol=1e-4, rtol=1e-3)
+
+
+def test_checkpointer_round_trip_keeps_device_and_dtype(cuda, tmp_path):
+    """A CUDA server state (fp32 and bf16 leaves, a tuple) and an aux
+    blob holding CUDA tensors (an error-feedback residual) come back
+    from ``EngineCheckpointer`` on the card, each in its dtype, equal."""
+    from repro_torch.fl.faults import EngineCheckpointer
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = {"w": torch.randn(3, 5, device=cuda, generator=gen),
+             "h": torch.randn(7, device=cuda, generator=gen).bfloat16(),
+             "pair": (torch.arange(4, device=cuda),
+                      torch.ones(2, device=cuda))}
+    aux = {"rng": np.random.default_rng(3).bit_generator.state,
+           "ef": [[2, (None, {"w": torch.randn(3, 5, device=cuda,
+                                               generator=gen)})]]}
+    ck = EngineCheckpointer(str(tmp_path), every=1)
+    ck.save(0, state, aux)
+    rd, tree, back = ck.load_latest(device=cuda)
+    assert rd == 0 and isinstance(tree["pair"], tuple)
+    for a, b in zip(tree_leaves(tree), tree_leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    res = back["ef"][0][1][1]["w"]
+    assert res.device.type == "cuda"
+    assert torch.equal(res, aux["ef"][0][1][1]["w"])
+    assert back["rng"] == aux["rng"]
+
+
+def test_async_run_on_the_card_matches_the_cpu(cuda):
+    """Two server versions of reduced mamba2 (4 layers) under the async
+    ``AsyncEngine`` (concurrency 2, buffer 1, ``profiles_for_ratios``) on
+    the card through K1 and K3 against the same run on the CPU: the same
+    trace, bytes and sim seconds, parameters within atol 1e-4 / rtol
+    1e-3."""
+    from repro_torch.fl.systime import (AsyncEngine, SystemModel,
+                                        profiles_for_ratios)
+    cfg = dataclasses.replace(get_reduced_config("mamba2-370m"),
+                              num_layers=4)
+    sim = SimConfig(rounds=2, participation=0.5, lr=0.05, local_steps=1,
+                    batch_size=4, seed=0)
+    init = build(cfg).init(0, device="cpu")
+    before = [mamba2_scan.launches, chunked_cross_entropy.launches]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        data = build_seq_data(6, n_per_client=12, n_test=8,
+                              vocab_size=cfg.vocab_size, seq_len=16,
+                              device=dev)
+        ctx = build_lm_context(data, sim, cfg, device=dev)
+        eng = AsyncEngine(get_strategy("fedepth"), ctx, mode="async",
+                          concurrency=2, buffer_size=1,
+                          system=SystemModel(profiles_for_ratios(
+                              ctx.ratios)))
+        state, hist = eng.run(initial_state=tree_map(lambda t: t.to(dev),
+                                                     init), eval_every=1)
+        runs[dev] = (state, eng.trace, [(r.comm_bytes, r.down_bytes,
+                                         r.sim_seconds) for r in hist])
+    assert mamba2_scan.launches > before[0]
+    assert chunked_cross_entropy.launches > before[1]
+    assert runs["cuda"][1] == runs["cpu"][1]
+    assert runs["cuda"][2] == runs["cpu"][2]
+    for a, b in zip(tree_leaves(runs["cuda"][0]), tree_leaves(runs["cpu"][0])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_damage_on_the_card_equals_the_cpu(cuda, dtype):
+    """``FaultInjector.damage_tree`` on a reduced mamba2 payload (stacked
+    wire leaves) on the card: the same coordinates and values as on the
+    CPU, bitwise, the copies on the card in the payload's dtype, the
+    original unwritten."""
+    from repro_torch.fl.faults import Fault, FaultInjector, FaultPlan
+    params = tree_map(lambda t: t.to(dtype),
+                      build(get_reduced_config("mamba2-370m")).init(
+                          0, device="cpu"))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    inj = FaultInjector(FaultPlan(seed=2, corrupt_frac=0.01))
+    for kind in ("corrupt", "diverge"):
+        fault = Fault(kind, 4, 1, 0)
+        want = inj.damage_tree(params, fault)
+        got = inj.damage_tree(on_card, fault)
+        for a, b, c in zip(tree_leaves(got), tree_leaves(want),
+                           tree_leaves(on_card)):
+            assert a.device.type == "cuda" and a.dtype == dtype
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0,
+                                       equal_nan=True)
+            assert a.data_ptr() != c.data_ptr()
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_leaves(on_card), tree_leaves(params)))

@@ -38,9 +38,12 @@ def test_two_rounds_match_reference_engine(arch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(scheduler="sharded"), dict(obs="on"), dict(checkpoint_every=1),
-    dict(faults=object()), dict(resume=True)])
+    dict(scheduler="sharded"), dict(obs="on"), dict(obs=True),
+    dict(history_sink="history.jsonl"), dict(history_sink=object())])
 def test_unported_engine_knobs_raise(knob):
+    """The knobs of later items (the sharded scheduler and the history
+    sink: item 9; telemetry: item 10) raise; the fault and checkpoint
+    knobs are ported (tests/test_torch_faults.py)."""
     cfg = get_reduced_config("qwen2-7b")
     ctx = build_lm_context(build_seq_data(4, vocab_size=cfg.vocab_size,
                                           device="cpu", **DATA),

@@ -130,6 +130,14 @@ MOE_COMM_PATH = ("configs.qwen3_moe_235b_a22b",
                  "configs.llama4_maverick_400b_a17b", "models.moe",
                  "fl.comm", "fl.comm.codecs", "fl.comm.error_feedback",
                  "fl.comm.payload", "layout")
+# system time, faults and checkpoints
+SYSTIME_FAULTS_PATH = ("fl.systime", "fl.systime.clock",
+                       "fl.systime.availability", "fl.systime.staleness",
+                       "fl.systime.profiles", "fl.systime.engine",
+                       "fl.faults", "fl.faults.plan", "fl.faults.quarantine",
+                       "fl.faults.resilience", "fl.faults.checkpointing",
+                       "fl.scale", "fl.scale.state_store", "train",
+                       "train.checkpoint")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -142,16 +150,18 @@ def test_port_imports_neither_jax_nor_reference():
     names = out.stdout.split()
     assert len(names) >= 28
     missing = [m for m in IMAGE_PATH + SERVING_PATH + MOE_COMM_PATH
-               if f"repro_torch.{m}" not in names]
+               + SYSTIME_FAULTS_PATH if f"repro_torch.{m}" not in names]
     assert not missing, missing
 
 
 def test_runtime_modules_do_not_import_testing():
-    """The training, wire and serving modules stand without
-    ``repro_torch.testing`` (the parity helpers): the wire format is the
-    program's, not the tests'."""
+    """The training, wire, system-time, fault and serving modules stand
+    without ``repro_torch.testing`` (the parity helpers): the wire format
+    is the program's, not the tests'."""
     code = ("import sys, repro_torch.fl.engine, repro_torch.fl.comm, "
-            "repro_torch.fl.registry, repro_torch.launch.serve; "
+            "repro_torch.fl.registry, repro_torch.launch.serve, "
+            "repro_torch.fl.systime, repro_torch.fl.faults, "
+            "repro_torch.train.checkpoint; "
             "print(sorted(m for m in sys.modules "
             "if m.startswith('repro_torch.testing')))")
     env = {**os.environ, "PYTHONPATH": str(SRC)}

@@ -249,10 +249,12 @@ def test_client_update_batched_float64_matches_to_rounding(family):
                                        atol=1e-12)
 
 
-def test_lm_runner_raises_under_vectorized():
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen3-moe-235b-a22b"])
+def test_lm_runner_raises_under_vectorized(arch):
     """An LM runner's kernels (K1-K4) have no vmap rules yet: the stacked
-    path raises instead of falling back quietly."""
-    cfg = get_reduced_config("qwen2-7b")
+    path raises instead of falling back quietly, for every LM family
+    (the MoE runner among them)."""
+    cfg = get_reduced_config(arch)
     data = build_seq_data(4, n_per_client=4, n_test=4,
                           vocab_size=cfg.vocab_size, seq_len=8, seed=0,
                           device="cpu")
