@@ -122,7 +122,25 @@ Phases (each fails loudly; any failure exits non-zero):
    start), with a fault or quarantine in the trace.  K1 and K3 must
    launch in each LM run, at shapes phase 3 checked.  Each run logs wall
    and sim seconds, peak and launches, the first of each set of
-   identical runs its device idle share.
+   identical runs its device idle share;
+9. scale and observability (after phase 8, on phase 5's data; each run
+   logs wall seconds, peak, launches and the host's RSS before and after,
+   the first of a set its idle share): (a) a lazily drawn population of
+   10^6 clients (``repro_torch.fl.scale.Population``) on full-width
+   PreResNet-20, a cohort of 100, 1 masked FeDepth round under the
+   vectorized scheduler and the sharded one with fused aggregation (and
+   ``max_lanes=16``): equal bytes, states within the vectorized
+   tolerance, a single-group fused round bitwise ``aggregate_masked``,
+   then the vectorized run at 10^4 clients (host RSS side by side); (b) the
+   async run of phase 8 (a) under ``qsgd_int8`` / delta with a
+   ``SpillStore(capacity=2)`` on the engine and the channel, and
+   checkpointed, killed and resumed: bitwise the run without a store;
+   (c) mamba2-370m at 48 layers, 2 FeDepth rounds with telemetry off and
+   full (``obs=``, a JSONL ``history_sink``): bitwise, K1 and K3 launch;
+   the Chrome trace through ``tools/trace_report.py``, the Prometheus
+   snapshot, span counts, and the memory auditor's cells (every trained
+   block measured; PreResNet-20's, from one audited round, within the
+   reference's envelope 0.25–4).  PreResNet-20 runs launch no kernel.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (every timed shape beside the first under ``heads``, each with
@@ -2890,6 +2908,499 @@ def phase_systime(data, smi: str) -> dict:
     return phase_systime_lm(smi)
 
 
+# --------------------------------------------------------------- phase 9
+POP_CLIENTS = 1_000_000
+POP_SMALL = 10_000
+# the population runs' rounds: cut from 2 to 1 to keep the whole script
+# under 900 s (PERF.md §6)
+POP_ROUNDS = 1
+
+
+def _rss() -> int:
+    """This process's resident set on the host, in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _scale_run(name: str, smi: str, engine, profile: bool = False,
+               run_kw=None):
+    """``engine.run(eval_every=1, **run_kw)`` counted (:func:`_counted`),
+    the first of a set under :func:`device_busy`: logs wall (and sim)
+    seconds, the peak, the launches, the host's RSS before and after and
+    (profiled) the device's idle share; returns (state, history,
+    launches, shapes, peak, wall, RSS growth)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = _rss()
+    count = lambda: _counted(lambda: engine.run(  # noqa: E731
+        eval_every=1, **(run_kw or {})))
+    if profile:
+        (out, launches, _, shapes), wall, busy, n = device_busy(count)
+        idle = (f", device busy {busy:.3f} s over {n} device operations, "
+                f"idle share {1 - busy / wall:.4f}")
+    else:
+        out, launches, wall, shapes = count()
+        idle = ""
+    rss1 = _rss()
+    state, history = out
+    peak = torch.cuda.max_memory_allocated()
+    sim = (f", sim {history[-1].sim_seconds:.3f} s" if history
+           and history[-1].sim_seconds else "")
+    log(f"  {name}: wall {wall:.2f} s{sim}, peak {peak / GIB:.3f} GiB, "
+        f"launches {launches}{idle}, host RSS {rss0 / GIB:.3f} -> "
+        f"{rss1 / GIB:.3f} GiB ({smi})")
+    return state, history, launches, shapes, peak, wall, rss1 - rss0
+
+
+def _states_within(a, b, rtol=2e-4, atol=2e-5) -> float:
+    """Max abs difference of two states, failing outside the vectorized
+    tolerance (PERF.md §2)."""
+    import torch
+    worst = 0.0
+    for (path, x), (_, y) in zip(_leaf_paths(a), _leaf_paths(b)):
+        worst = max(worst, float((x - y).abs().max()))
+        if not torch.allclose(x, y, rtol=rtol, atol=atol):
+            raise AssertionError(f"{path}: outside rtol {rtol} / atol "
+                                 f"{atol} (max abs diff "
+                                 f"{float((x - y).abs().max())})")
+    return worst
+
+
+def phase_scale_population(smi: str) -> None:
+    """(a) A lazily drawn population of 10^6 clients on full-width
+    PreResNet-20 (``fair``, |D_k| in [64, 256], CIFAR-10's shape),
+    participation 1e-4 (a cohort of 100 from ``PopulationSampler``),
+    batch 64, ``POP_ROUNDS`` masked FeDepth rounds (FeDepth with per-leaf
+    masked aggregation, so that the sharded scheduler's fused aggregation
+    runs), under deterministic algorithms: ``VectorizedScheduler(min_group=2)``
+    with host aggregation, then ``ShardedScheduler(aggregate="mesh")``
+    and with ``max_lanes=16``.  Bytes equal, final states within the
+    vectorized tolerance, no launches; a single-group, one-chunk fused
+    round bitwise ``aggregate_masked``, and whether chunks of 2 lanes
+    change lane bits; the vectorized run again at 10^4 clients, the
+    host RSS growths side by side."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.fl.engine import RoundEngine, SimConfig, build_context
+    from repro_torch.fl.sampling import VectorizedScheduler
+    from repro_torch.fl.scale import (Population, PopulationSampler,
+                                      ShardedScheduler)
+    from repro_torch.fl.strategies.fedepth import FedepthStrategy
+
+    sim = SimConfig(rounds=POP_ROUNDS, participation=100 / POP_CLIENTS,
+                    lr=0.05,
+                    momentum=0.9, local_steps=1, batch_size=64,
+                    scenario="fair", seed=0)
+
+    def engine(scheduler, n=POP_CLIENTS):
+        pop = Population(num_clients=n, scenario="fair", image_size=32,
+                         channels=3, num_classes=10)
+        s = dataclasses.replace(sim, participation=100 / n)
+        ctx = build_context(None, s, population=pop, model_cfg=CONFIG)
+        return RoundEngine(FedepthStrategy(masked_aggregation=True), ctx,
+                           sampler=PopulationSampler(availability=pop),
+                           scheduler=scheduler)
+
+    log(f"scale and observability (a): masked FeDepth on {CONFIG.name}, a "
+        f"population of {POP_CLIENTS} clients, cohort 100, batch 64, "
+        f"{POP_ROUNDS} round(s)")
+    runs = {}
+    with deterministic():
+        for i, (name, sched) in enumerate((
+                ("vectorized, host aggregation",
+                 VectorizedScheduler(min_group=2)),
+                ("sharded, fused (mesh) aggregation",
+                 ShardedScheduler(aggregate="mesh")),
+                ("sharded, fused, max_lanes 16",
+                 ShardedScheduler(aggregate="mesh", max_lanes=16)))):
+            eng = engine(sched)
+            state, hist, launches, _, peak, wall, grew = _scale_run(
+                name, smi, eng, profile=i == 0)
+            _check_no_launches(name, launches)
+            _check_finite(name, state)
+            runs[name] = (state, hist, peak, wall, grew)
+            rows = [(r.round, r.accuracy, round(r.seconds, 3),
+                     r.comm_bytes, r.down_bytes) for r in hist]
+            log(f"    rounds {rows}")
+            del eng
+        names = list(runs)
+        base = runs[names[0]]
+        for name in names[1:]:
+            other = runs[name]
+            same_bytes = [(r.comm_bytes, r.down_bytes) for r in base[1]] \
+                == [(r.comm_bytes, r.down_bytes) for r in other[1]]
+            if not same_bytes:
+                raise AssertionError(f"{name}: bytes differ from the "
+                                     f"vectorized run's")
+            worst = _states_within(base[0], other[0])
+            log(f"  {name} vs vectorized: bytes equal, final states within "
+                f"rtol 2e-4 / atol 2e-5 (max abs diff {worst:.3e})")
+        log("  side by side (round seconds; peak GiB; host RSS growth "
+            "GiB): " + "; ".join(
+                f"{n}: {[round(r.seconds, 3) for r in v[1]]}, "
+                f"{v[2] / GIB:.3f}, {v[4] / GIB:.3f}"
+                for n, v in runs.items()))
+        check_fused_single_group(engine(None))
+        *_, grew_small = _scale_run(
+            f"vectorized at {POP_SMALL} clients", smi,
+            engine(VectorizedScheduler(min_group=2), n=POP_SMALL))
+        log(f"  host RSS growth: {POP_CLIENTS} clients (profiled) "
+            f"{base[4] / GIB:.3f} GiB, {POP_SMALL} clients "
+            f"{grew_small / GIB:.3f} GiB")
+    del runs, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_fused_single_group(eng) -> None:
+    """One decomposition group of 8 clients with one batch each, drawn
+    from the population: the fused round (one chunk on one device) equals
+    the vectorized run + ``aggregate_masked`` bitwise; the lanes of
+    chunks of 2 (``max_lanes=2``) against the one stack: bitwise, or
+    held at the vectorized tolerance — logged which."""
+    from repro_torch.fl.sampling import VectorizedScheduler
+    from repro_torch.fl.scale import ShardedScheduler
+    ctx, strat = eng.ctx, eng.strategy
+    strat.setup(ctx)
+    state = strat.init_state(ctx)
+    key0, group = None, []
+    for k in range(10_000):
+        if int(ctx.sizes[k]) >= 2 * ctx.sim.batch_size:
+            continue
+        key = strat.client_group_key(ctx, k)
+        if key0 is None:
+            key0 = key
+        if key == key0:
+            group.append(k)
+        if len(group) == 8:
+            break
+    start = ctx.rng.bit_generator.state
+    batch_fn = eng.default_batch_fn()
+    results = VectorizedScheduler(min_group=1).run(ctx, strat, state, group,
+                                                   batch_fn)
+    want = strat.aggregate(ctx, state, results)
+    ctx.rng.bit_generator.state = start
+    got, _ = ShardedScheduler(min_group=1, aggregate="mesh").run_fused(
+        ctx, strat, state, group, batch_fn)
+    diff = _first_difference(want, got)
+    log(f"  single group {group} (blocks {key0[0]}), one chunk: fused "
+        f"round bitwise aggregate_masked {diff is None}")
+    if diff is not None:
+        raise AssertionError(f"fused single group: {diff}")
+    ctx.rng.bit_generator.state = start
+    narrow = ShardedScheduler(min_group=1, max_lanes=2).run(
+        ctx, strat, state, group, batch_fn)
+    lanes = [(r.payload[0], n.payload[0]) for r, n in zip(results, narrow)]
+    diffs = [_first_difference(a, b) for a, b in lanes]
+    if all(d is None for d in diffs):
+        log("  lanes of chunks of 2 vs one stack of 8: bitwise")
+    else:
+        worst = max(_states_within(a, b) for a, b in lanes)
+        log(f"  lanes of chunks of 2 vs one stack of 8: not bitwise, "
+            f"within rtol 2e-4 / atol 2e-5 (max abs diff {worst:.3e})")
+
+
+def phase_scale_store(data, smi: str) -> None:
+    """(b) Phase 8's async FeDepth on PreResNet-20 (concurrency 10, buffer
+    5, 4 versions over ``profiles_for_ratios``) with a
+    ``CommChannel("qsgd_int8", "delta")``, deterministic: without a
+    store, then with one ``SpillStore(capacity=2)`` on the engine and the
+    channel, then that checkpointed every 2 versions, killed after
+    version 2 and resumed — state, history rows and trace bitwise the
+    run without a store; spill and load counts above zero."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.fl.comm import CommChannel
+    from repro_torch.fl.engine import SimConfig, build_context
+    from repro_torch.fl.registry import get_strategy
+    from repro_torch.fl.scale import SpillStore
+    from repro_torch.fl.systime import (AsyncEngine, SystemModel,
+                                        profiles_for_ratios)
+
+    def async_engine(store=None, **kw):
+        sim = SimConfig(rounds=4, participation=0.1, lr=0.05, momentum=0.9,
+                        local_steps=1, batch_size=64, scenario="fair",
+                        seed=0)
+        c = build_context(data, sim, model_cfg=CONFIG)
+        return AsyncEngine(get_strategy("fedepth"), c, mode="async",
+                           concurrency=10, buffer_size=5,
+                           system=SystemModel(profiles_for_ratios(
+                               c.ratios)),
+                           channel=CommChannel("qsgd_int8", "delta",
+                                               state_store=store),
+                           state_store=store, **kw)
+
+    def run(name, eng, profile=False):
+        out, launches, _, _ = _systime_run(name, smi, eng, profile)
+        _check_no_launches(name, launches)
+        _check_finite(name, out[0])
+        return out
+
+    log(f"scale and observability (b): the state store under faults of "
+        f"the process and resume, async FeDepth on {CONFIG.name}, "
+        f"qsgd_int8 / delta")
+    d = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        with deterministic():
+            a = run("async, no store", async_engine(), True)
+            store = SpillStore(2, dir=os.path.join(d, "spill"))
+            b = run("async, SpillStore(2) on the engine and the channel",
+                    async_engine(store))
+            _same_run("spill store vs in memory", a, b)
+            log(f"  spill store: {store.spill_count} spills, "
+                f"{store.load_count} disk loads, {store.resident()} "
+                f"resident of {len(store)}")
+            if store.spill_count <= 0 or store.load_count <= 0:
+                raise AssertionError("the store never spilled or loaded")
+            kw = dict(checkpoint_every=2, checkpoint_dir=os.path.join(
+                d, "ckpt"))
+            c = run("async, store, checkpointed every 2 versions",
+                    async_engine(SpillStore(2, dir=os.path.join(d, "s2")),
+                                 **kw))
+            killed = _kill_latest(kw["checkpoint_dir"])
+            resumed = SpillStore(2, dir=os.path.join(d, "s3"))
+            r = run(f"async, store, resumed after version {killed}",
+                    async_engine(resumed, resume=True, **kw))
+            _same_run("resumed vs checkpointed", c, r)
+            _same_run("resumed vs no store", a,
+                      (r[0], r[1], [e for e in r[2]
+                                    if e[0] != "checkpoint"]))
+            log(f"  resumed store: {resumed.spill_count} spills, "
+                f"{resumed.load_count} disk loads")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+
+
+def phase_scale_obs(data, smi: str) -> dict:
+    """(c) mamba2-370m at published widths and all 48 layers, FeDepth over
+    6 clients with phase 4's data, 2 ``RoundEngine`` rounds under
+    deterministic algorithms: telemetry off, then with a full capture
+    (spans, metrics, the memory auditor, the dynamics) and a JSONL history
+    sink — states bitwise, the sink's round lines equal to the off run's
+    history but for wall seconds; K1 and K3 launch.  Between them the same
+    capture audits one PreResNet-20 FeDepth round (phase 5's data,
+    ``AsyncEngine`` sync over ``profiles_for_ratios``, cohort 10), whose
+    client lanes give the Chrome trace its tiers; its cells, and the same
+    round's with PyTorch's own convolutions in place of cuDNN's (whose
+    weight-gradient workspace the model does not price: ROADMAP §3, fault
+    17), are logged, and the latter gated within the reference's
+    envelope.  The Chrome trace goes through ``tools/trace_report.py``
+    (exit 0), the Prometheus snapshot is written, span counts and every
+    audit cell's error ratio logged; a cell outside the envelope with
+    cuDNN is logged as a finding.  Returns the two runs' launches by
+    shape."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fl.engine import RoundEngine, SimConfig
+    from repro_torch.fl.registry import get_strategy
+    from repro_torch.fl.scale.history import read_jsonl
+    from repro_torch.fl.seq import build_lm_context, build_seq_data
+    from repro_torch.obs import MemoryAuditor, Obs, make_obs
+    from repro_torch.obs.audit import ERROR_RATIO_BOUNDS
+
+    cfg = get_config(SYSTIME_ARCH)
+    lm_data = build_seq_data(6, n_per_client=16, n_test=16,
+                             vocab_size=cfg.vocab_size, seq_len=256, seed=0)
+    sim = SimConfig(rounds=2, participation=0.5, lr=0.05, momentum=0.9,
+                    local_steps=1, batch_size=4, scenario="fair", seed=0)
+    log(f"scale and observability (c): FeDepth on {cfg.name}, "
+        f"{cfg.num_layers} layers (all), telemetry off and full")
+    by_run = {}
+    needed = ("chunked_cross_entropy", "mamba2_scan")
+    cap = make_obs("full")
+    d = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        with deterministic():
+            off = RoundEngine(get_strategy("fedepth"),
+                              build_lm_context(lm_data, sim, cfg))
+            s0, h0, l0, sh0, p0, w0, _ = _scale_run("obs off", smi, off,
+                                                    profile=True)
+            by_run[SYSTIME_ARCH, "phase 9 obs off"] = (l0, sh0)
+            del off
+            # the audited PreResNet-20 round (tier lanes, resnet cells),
+            # then the same round with PyTorch's own convolutions in place
+            # of cuDNN's, whose weight-gradient workspace the model does
+            # not price (ROADMAP §3, fault 17): the envelope's gate
+            img = _audited_image_round(data, cap)
+            log(f"  audited PreResNet-20 sync round: sim "
+                f"{img.clock.now:.3f} s, "
+                f"{len(cap.tracer.sys_events)} scheduling events")
+            plain = Obs(audit=MemoryAuditor())
+            t_plain = time.perf_counter()
+            _audit_without_cudnn(img, plain)
+            log(f"  its blocks without cuDNN (one client update a "
+                f"decomposition, one batch, audit only): "
+                f"{time.perf_counter() - t_plain:.2f} s")
+            del img
+            # the full capture on the mamba2 run
+            cap.audit.erased_peak = 0
+            n0 = len(cap.tracer.spans)
+            cohorts = []
+            on = RoundEngine(get_strategy("fedepth"),
+                             build_lm_context(lm_data, sim, cfg), obs=cap,
+                             history_sink=os.path.join(d, "history.jsonl"))
+            sample = on.sampler.sample
+
+            def recording(c, rd):
+                ids = sample(c, rd)
+                cohorts.append([int(k) for k in ids])
+                return ids
+
+            on.sampler.sample = recording
+            s1, h1, l1, sh1, p1, w1, _ = _scale_run(
+                "obs full + history sink", smi, on)
+            by_run[SYSTIME_ARCH, "phase 9 obs full"] = (l1, sh1)
+        peak = max(p1, cap.audit.erased_peak)
+        lines = read_jsonl(os.path.join(d, "history.jsonl"), kind="round")
+        rows = [(r["round"], r["accuracy"], r["comm_bytes"],
+                 r["sim_seconds"], r["down_bytes"]) for r in lines]
+        diff = _first_difference(s0, s1)
+        same = h1 == [] and rows == _rows(h0)
+        log(f"  obs full vs off: states bitwise {diff is None}, sink round "
+            f"lines equal the off history {same}, wall {w1:.2f} vs "
+            f"{w0:.2f} s, peak {peak / GIB:.3f} (the larger of the "
+            f"allocator's and the auditor's erased) vs {p0 / GIB:.3f} GiB")
+        if diff is not None or not same:
+            raise AssertionError(f"telemetry changed the run: {diff}, rows "
+                                 f"{rows} vs {_rows(h0)}")
+        for name, launches in (("off", l0), ("full", l1)):
+            missing = [k for k in needed if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"obs {name}: kernels {missing} were "
+                                     f"not launched: {launches}")
+        kinds = {}
+        for span in cap.tracer.spans[n0:]:
+            kinds[span.kind] = kinds.get(span.kind, 0) + 1
+        log(f"  mamba2 spans: {kinds}")
+        trace = os.path.join(d, "trace.json")
+        cap.export_chrome_trace(trace)
+        prom = cap.export_prometheus(os.path.join(d, "metrics.prom"))
+        n_lines = cap.export_jsonl(os.path.join(d, "telemetry.jsonl"))
+        rep = subprocess.run([sys.executable, os.path.join(
+            ROOT, "tools", "trace_report.py"), trace],
+            capture_output=True, text=True, timeout=120)
+        log(f"  tools/trace_report.py exit {rep.returncode}: "
+            + " | ".join(rep.stdout.strip().splitlines()[-3:]))
+        if rep.returncode != 0:
+            raise AssertionError(f"trace_report: {rep.stderr[-2000:]}")
+        log(f"  Prometheus snapshot {len(prom.splitlines())} lines, "
+            f"{len(cap.metrics)} metrics; JSONL export {n_lines} lines; "
+            f"dynamics rounds {len(cap.dynamics.rounds)}")
+        # every block of every trained decomposition, audited
+        family = on.strategy.runner.family
+        blocks = {b for ids in cohorts for k in ids
+                  for b in on.ctx.decomps[k].blocks}
+        cells = {(c["lo"], c["hi"]): c for c in cap.audit.table()
+                 if c["family"] == family}
+        missing = [b for b in sorted(blocks)
+                   if b not in cells or cells[b]["status"] != "ok"]
+        if missing:
+            raise AssertionError(f"blocks without a measured audit cell: "
+                                 f"{missing}")
+        lo, hi = ERROR_RATIO_BOUNDS
+        outside = []
+        for c in cap.audit.table():
+            log(f"  audit {c['family']} [{c['block']}) batch {c['batch']}: "
+                f"measured {c['measured_bytes'] / GIB:.4f} GiB (temp "
+                f"{c['temp_bytes'] / GIB:.4f}, arguments "
+                f"{c['argument_bytes'] / GIB:.4f}), predicted "
+                f"{c['predicted_bytes'] / GIB:.4f} GiB, "
+                f"memory_model_error_ratio {c['error_ratio']:.4f}, "
+                f"budget {c['budget_bytes']}, violated "
+                f"{c['violated_tiers']}")
+            if not lo <= c["error_ratio"] <= hi:
+                outside.append((c["family"], c["block"], c["error_ratio"]))
+        if outside:
+            log(f"  finding (ROADMAP §3, fault 17): cells outside "
+                f"{ERROR_RATIO_BOUNDS} with cuDNN's convolutions: {outside}")
+        gated = plain.audit.table()
+        blocks = {c["block"] for c in cap.audit.table()
+                  if c["family"] == "resnet"}
+        for c in gated:
+            log(f"  audit without cuDNN resnet [{c['block']}): measured "
+                f"{c['measured_bytes'] / GIB:.4f} GiB, predicted "
+                f"{c['predicted_bytes'] / GIB:.4f} GiB, "
+                f"memory_model_error_ratio {c['error_ratio']:.4f}")
+        bad = [(c["block"], c["error_ratio"]) for c in gated
+               if c["status"] != "ok" or not lo <= c["error_ratio"] <= hi]
+        if bad or {c["block"] for c in gated} != blocks:
+            raise AssertionError(f"resnet audit cells without cuDNN outside "
+                                 f"{ERROR_RATIO_BOUNDS}: {bad}, or blocks "
+                                 f"unaudited")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del s0, s1, on, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_run
+
+
+def _audited_image_round(data, obs):
+    """One FeDepth round of PreResNet-20 over phase 5's data (cohort 10,
+    batch 64) through ``AsyncEngine(mode="sync")`` over
+    ``profiles_for_ratios``, under the capture ``obs``; returns the
+    engine."""
+    import torch
+    from repro_torch.configs.preresnet20 import CONFIG
+    from repro_torch.fl.engine import SimConfig, build_context
+    from repro_torch.fl.registry import get_strategy
+    from repro_torch.fl.systime import (AsyncEngine, SystemModel,
+                                        profiles_for_ratios)
+    sim = SimConfig(rounds=1, participation=0.1, lr=0.05, momentum=0.9,
+                    local_steps=1, batch_size=64, scenario="fair", seed=0)
+    ctx = build_context(data, sim, model_cfg=CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    engine = AsyncEngine(get_strategy("fedepth"), ctx, mode="sync",
+                         system=SystemModel(profiles_for_ratios(ctx.ratios)),
+                         obs=obs)
+    engine.run(eval_every=1)
+    return engine
+
+
+def _audit_without_cudnn(engine, obs) -> None:
+    """The blocks of ``engine``'s round (one client update of each
+    decomposition its clients trained, one batch of the round's size)
+    under ``obs``'s auditor with PyTorch's own convolutions in place of
+    cuDNN's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import blockwise
+    from repro_torch.obs import activate
+    ctx, strategy = engine.ctx, engine.strategy
+    clients = sorted({e[2] for e in engine.trace if e[0] == "finish"})
+    decs = {ctx.decomps[k].blocks: ctx.decomps[k] for k in clients}
+    state = strategy.init_state(ctx)
+    batch = ctx.data.client_batch(clients[0], ctx.sim.batch_size,
+                                  np.random.default_rng(0))
+    obs.bind(ctx)
+    with activate(obs), torch.backends.cudnn.flags(enabled=False):
+        for dec in decs.values():
+            blockwise.client_update(strategy.runner, state, dec, [batch],
+                                    lr=ctx.sim.lr,
+                                    momentum=ctx.sim.momentum)
+
+
+def phase_scale(data, smi: str) -> dict:
+    """Phase 9 (run after phase 8, on phase 5's data)."""
+    t0 = time.perf_counter()
+    phase_scale_population(smi)
+    phase_scale_store(data, smi)
+    by_run = phase_scale_obs(data, smi)
+    log(f"phase 9 (scale and observability): {time.perf_counter() - t0:.1f}"
+        f" s")
+    return by_run
+
+
 K1_K2 = ("chunked_cross_entropy", "flash_attention")
 PATHS = (
     # (arch, layers, kernels that must launch on the path, method)
@@ -2987,6 +3498,7 @@ def main() -> int:
     data = phase_images()
     phase_comm(data)
     by_run.update(phase_systime(data, smi))
+    by_run.update(phase_scale(data, smi))
     del data
     phase_vit()
     for arch, runs in phase_serving().items():

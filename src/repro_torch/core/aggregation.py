@@ -14,6 +14,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.obs import active as _obs_active
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -31,6 +32,10 @@ def _finite_filter(client_params: tuple, *aligned: Sequence):
     flags = [_all_finite(p) for p in client_params]
     if all(flags):
         return (client_params,) + aligned
+    obs = _obs_active()
+    if obs is not None:
+        obs.metrics.counter("aggregate_nonfinite_dropped").inc(
+            sum(1 for f in flags if not f))
     keep = [i for i, f in enumerate(flags) if f]
     if not keep:
         return (client_params,) + aligned

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.decomposition import Decomposition
 from repro_torch.models import common, resnet as resnet_mod, vit as vit_mod
+from repro_torch.obs import active as obs_active
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -457,14 +458,27 @@ class PrefixCache:
         """Buffer (or advance) z_{lo-1} for every batch; the advance only
         runs forward (lo above the buffered depth), anything else
         re-buffers."""
+        obs = obs_active()
         if (self.zs is None or not self.runner.prefix_stable
                 or lo < self._lo):
+            fresh = self.zs is None
             fwd = make_prefix_forward(self.runner, lo)
             self.zs = [fwd(params, b) for b in batches]
+            if obs is not None:
+                # first buffering of an update vs a forced re-buffer
+                # (unstable prefix / backward transition)
+                obs.metrics.counter(
+                    "prefix_cache_buffer" if fresh
+                    else "prefix_cache_rebuffer").inc()
         elif lo != self._lo:
             adv = make_prefix_advance(self.runner, self._lo, lo)
             self.zs = [adv(params, z) for z in self.zs]
+            if obs is not None:
+                obs.metrics.counter("prefix_cache_advance").inc()
         self._lo = lo
+        if obs is not None:
+            obs.metrics.gauge("prefix_cache_buffered_bytes").set(
+                self.buffered_bytes())
         return self.zs
 
     def buffered_bytes(self) -> int:
@@ -478,6 +492,21 @@ class PrefixCache:
 
 def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
+
+
+def _audited(step, audit, **cell):
+    """``step`` whose FIRST call runs through the memory auditor
+    (``obs.audit.audit_block_step``: measured once per cell, the same
+    call, so the run is unchanged); later calls go straight through."""
+    first = [True]
+
+    def run(*args):
+        if first[0]:
+            first[0] = False
+            return audit.audit_block_step(step, args, **cell)
+        return step(*args)
+
+    return run
 
 
 def client_update(runner: BlockRunner, params, dec: Decomposition, batches,
@@ -513,28 +542,35 @@ def client_update(runner: BlockRunner, params, dec: Decomposition, batches,
         t = t.detach()
         return t if in_place and _storage(t) not in given else t.clone()
 
+    obs = obs_active()
     for j, (lo, hi) in enumerate(dec.blocks):
+        block_span = None if obs is None else \
+            obs.tracer.begin("block", lo=lo, hi=hi, j=j)
         zs = cache.prepare(params, batches, lo) if cache is not None \
             else None
         anchor = runner.split(params, lo, hi)
         train = tree_map(private, anchor)
         vel = tree_map(torch.zeros_like, train)
-        if cache is not None:
-            step = make_buffered_block_step(runner, lo, hi, j, lr=lr,
-                                            momentum=momentum,
-                                            prox_mu=prox_mu)
-            for _ in range(local_steps):
+        make = make_buffered_block_step if cache is not None \
+            else make_block_step
+        step = make(runner, lo, hi, j, lr=lr, momentum=momentum,
+                    prox_mu=prox_mu)
+        if obs is not None and obs.audit is not None:
+            step = _audited(step, obs.audit, family=runner.family, lo=lo,
+                            hi=hi, variant="buffered" if cache is not None
+                            else "recompute", n_batches=len(batches))
+        for _ in range(local_steps):
+            if cache is not None:
                 for z_in, batch in zip(zs, batches):
                     train, vel = step(params, train, vel, anchor, z_in,
                                       batch)
-        else:
-            step = make_block_step(runner, lo, hi, j, lr=lr,
-                                   momentum=momentum, prox_mu=prox_mu)
-            for _ in range(local_steps):
+            else:
                 for batch in batches:
                     train, vel = step(params, train, vel, anchor, batch)
         del vel, anchor
         params = runner.merge(params, train, lo=lo, hi=hi)
+        if block_span is not None:
+            obs.tracer.end(block_span)
     return params
 
 

@@ -49,10 +49,15 @@ _F16_MAX = float(np.finfo(np.float16).max)
 
 
 class _Leaf:
-    """A leaf's place in a flattened tree's structure."""
+    """A leaf's place in a flattened tree's structure.  One instance, also
+    across a pickle round trip (an encoded update spilled to disk or
+    checkpointed in flight): ``unflatten`` tests it by identity."""
 
     def __repr__(self) -> str:
         return "*"
+
+    def __reduce__(self):
+        return "_LEAF"
 
 
 _LEAF = _Leaf()
@@ -306,6 +311,13 @@ class QsgdInt8Codec(TreeCodec):
 
     def __init__(self, seed: int = 0):
         self._rng = np.random.default_rng(seed)
+
+    # the stream is part of a resumed run's state (ROADMAP §3, fault 16)
+    def export_state(self) -> dict:
+        return self._rng.bit_generator.state
+
+    def import_state(self, state: dict) -> None:
+        self._rng.bit_generator.state = state
 
     def _encode_leaf(self, x, m):
         vals = x if m is None else x[m]

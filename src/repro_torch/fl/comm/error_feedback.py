@@ -29,12 +29,13 @@ from repro_torch.tree import tree_map
 class ErrorFeedback:
     """Per-client residual store.  ``correct`` adds the residual into an
     outgoing update, ``update`` records what the codec just failed to
-    transmit.  The residuals live in a plain dict; the reference's
-    spilling stores wait for the scale layer (ROADMAP item 9)."""
+    transmit.  ``store`` (any ``repro_torch.fl.scale.state_store``
+    ClientStateStore, e.g. a bounded ``SpillStore``) holds the residuals;
+    the default is a plain dict."""
 
-    def __init__(self):
-        # id -> (tag, residual)
-        self._residuals = {}
+    def __init__(self, store=None):
+        # id -> (tag, residual); a dict satisfies the store protocol
+        self._residuals = store if store is not None else {}
 
     def residual(self, client_id: int):
         entry = self._residuals.get(client_id)

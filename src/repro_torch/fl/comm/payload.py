@@ -30,6 +30,7 @@ Content is exact in every downlink mode: only the bytes change.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
@@ -38,7 +39,8 @@ import torch
 from repro_torch.fl.comm.codecs import (Codec, WirePayload, _is_float_array,
                                         get_codec, trees_congruent, wire_sums)
 from repro_torch.fl.comm.error_feedback import ErrorFeedback
-from repro_torch.tree import tree_bytes, tree_map
+from repro_torch.obs import active as obs_active
+from repro_torch.tree import tree_bytes, tree_leaves, tree_map
 
 DOWNLINK_MODES = ("full", "sliced", "delta")
 
@@ -123,17 +125,24 @@ class CommChannel:
 
     def __init__(self, codec: Union[str, Codec, None] = "none",
                  downlink: str = "full", *, state_store=None):
-        if state_store is not None:
-            raise NotImplementedError(
-                "state_store= (spilling per-client state) waits for the "
-                "scale layer (ROADMAP item 9)")
+        """``state_store`` (a ``repro_torch.fl.scale.state_store``
+        ClientStateStore, e.g. a bounded ``SpillStore``) backs both
+        per-client maps the channel keeps — error-feedback residuals and
+        the delta downlink's last-seen tracker — under ``"ef"`` /
+        ``"downlink"`` namespaces of the one store.  ``None`` keeps plain
+        dicts."""
         self.codec = get_codec(codec)
         if downlink not in DOWNLINK_MODES:
             raise ValueError(f"downlink must be one of {DOWNLINK_MODES}, "
                              f"got {downlink!r}")
         self.downlink = downlink
-        self.ef = ErrorFeedback()
-        self._last_sent: Dict[int, Any] = {}   # client -> last-seen tree
+        if state_store is not None:
+            from repro_torch.fl.scale.state_store import PrefixedStore
+            self.ef = ErrorFeedback(PrefixedStore(state_store, "ef"))
+            self._last_sent = PrefixedStore(state_store, "downlink")
+        else:
+            self.ef = ErrorFeedback()
+            self._last_sent: Dict[int, Any] = {}   # client -> last-seen
 
     # -------------------------------------------------------------- uplink
     def encode_result(self, strategy, ctx, state, client_id: int, result):
@@ -152,13 +161,36 @@ class CommChannel:
             wire = self.codec.encode(corrected, mask=spec.mask)
             decoded = self.codec.decode(wire)
             self.ef.update(client_id, corrected, decoded, tag=spec.tag)
-        # the reference records codec ratios and residual norms here when
-        # its telemetry is on; that waits for the obs layer (ROADMAP
-        # item 10)
+        obs = obs_active()
+        if obs is not None:
+            self._record(obs, client_id, spec.tree, wire, corrected,
+                         decoded)
         result.payload = WireUpdate(wire, self.codec, ref=spec.ref,
                                     rebuild=spec.rebuild, decoded=decoded)
         result.comm_bytes = wire.nbytes
         return result
+
+    def _record(self, obs, client_id: int, tree, wire, corrected,
+                decoded) -> None:
+        """The encode's telemetry: the encode ratio against the raw
+        tree, the encoded bytes, and the norm of the residual error
+        feedback just stored (corrected - decoded on float leaves, in
+        float64; read-only)."""
+        raw = tree_bytes(tree)
+        if raw > 0:
+            obs.metrics.histogram(
+                "codec_encode_ratio",
+                codec=self.codec.name).observe(wire.nbytes / raw)
+        obs.metrics.counter("codec_encoded_bytes",
+                            codec=self.codec.name).inc(wire.nbytes)
+        sq = 0.0
+        with torch.no_grad():
+            for c, d in zip(tree_leaves(corrected), tree_leaves(decoded)):
+                if _is_float_array(c):
+                    diff = c.double() - d.double().to(c.device)
+                    sq += float(torch.sum(diff * diff))
+        obs.metrics.gauge("ef_residual_norm",
+                          client=client_id).set(math.sqrt(sq))
 
     def decode_result(self, result):
         """Server-side decode (in place), just before the strategy's
@@ -180,14 +212,23 @@ class CommChannel:
 
     # ------------------------------------------------ checkpoint / resume
     def export_state(self) -> dict:
-        """The channel's per-client maps in checkpointable form: the
-        error-feedback residuals and the delta downlink's last-seen
-        tracker, both part of the bitwise resume contract."""
+        """The channel's state in checkpointable form: the error-feedback
+        residuals, the delta downlink's last-seen tracker and a
+        stochastic codec's own stream (qsgd's), all part of the bitwise
+        resume contract.  The reference carries the first two only, so
+        its resumed runs under ``qsgd_int8`` restart the codec's stream
+        (ROADMAP §3, fault 16)."""
+        codec = getattr(self.codec, "export_state", None)
         return {"ef": self.ef.export_state(),
-                "last_sent": [[k, self._last_sent[k]]
-                              for k in sorted(self._last_sent, key=repr)]}
+                "last_sent": [[k, self._last_sent.get(k)]
+                              for k in sorted(self._last_sent.keys(),
+                                              key=repr)],
+                "codec": codec() if codec is not None else None}
 
     def import_state(self, state: dict) -> None:
+        if state.get("codec") is not None \
+                and hasattr(self.codec, "import_state"):
+            self.codec.import_state(state["codec"])
         if state.get("ef") is not None:
             self.ef.import_state(state["ef"])
         self._last_sent.clear()

@@ -17,10 +17,12 @@ and routes every uplink and downlink byte through a
 client faults and turn on retries, quarantine and cohort-shortfall
 degradation; ``checkpoint_every`` / ``checkpoint_dir`` /
 ``checkpoint_keep`` / ``resume`` write crash-safe checkpoints and
-continue a killed run bitwise.  The system-time engine is
-:class:`repro_torch.fl.systime.AsyncEngine`.  The reference's telemetry
-and history-sink knobs are accepted by name and raise
-``NotImplementedError`` when set — never silently ignored.
+continue a killed run bitwise.  ``history_sink`` streams the history to
+a JSONL file (``repro_torch.fl.scale.history``), ``obs`` turns on the
+telemetry layer (``repro_torch.obs``), and ``build_context(population=)``
+builds the context of a lazily drawn client population
+(``repro_torch.fl.scale.population``).  The system-time engine is
+:class:`repro_torch.fl.systime.AsyncEngine`.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.fl.sampling import (CohortSampler, UniformSampler,
                                      make_scheduler)
 from repro_torch.fl.strategy import ClientResult, Context, FLStrategy, \
     wire_bytes
+from repro_torch.obs import make_obs, scope, span_if
 
 SCENARIOS: Dict[str, Tuple[float, ...]] = {
     "fair": (1 / 6, 1 / 3, 1 / 2, 1.0),
@@ -102,10 +105,16 @@ def build_context(data, sim: SimConfig, *,
     """The per-experiment context of the paper's image protocol: ratios,
     byte budgets, FeDepth decompositions and MKD flags (M = 2 for r >= 2),
     on ``device`` (the GPU unless ``"cpu"``; the data must already live
-    there).  ``population=`` (lazy client populations) is not ported
-    yet."""
+    there).
+
+    With ``population=`` (a ``repro_torch.fl.scale.population
+    .Population``) the per-client arrays become LAZY hash-drawn views and
+    ``data`` may be ``None`` (batches synthesized on demand) — nothing
+    O(num_clients) is built; see docs/scale.md."""
     if population is not None:
-        raise NotImplementedError("population= is not ported yet")
+        from repro_torch.fl.scale.population import population_context
+        return population_context(population, sim, model_cfg=model_cfg,
+                                  data=data, device=device)
     dev = resolve_device(device)
     if data.device.type != dev.type:
         raise ValueError(f"data lives on {data.device}, context on {dev}")
@@ -165,22 +174,28 @@ def apply_prefix_cache(ctx: Context, spec) -> Context:
     return dataclasses.replace(ctx, prefix_cache=resolved)
 
 
-def refuse_unported(history_sink=None, obs=None, state_store=None) -> None:
-    """The reference engines' knobs that wait for later items: each is off
-    at ``None`` (``obs`` also at "off" / False) and raises, naming its
-    item, when set."""
-    if history_sink is not None:
-        raise NotImplementedError(
-            "history_sink= (the JSONL history stream) waits for the scale "
-            "layer (ROADMAP item 9)")
-    if state_store is not None:
-        raise NotImplementedError(
-            "state_store= (spilling in-flight snapshots) waits for the "
-            "scale layer (ROADMAP item 9)")
-    if obs not in (None, False, "off"):
-        raise NotImplementedError(
-            "obs= (telemetry) waits for the observability layer (ROADMAP "
-            "item 10)")
+def resolve_history_sink(spec, mode: str = "w") -> Tuple[object, bool]:
+    """Resolve an engine's ``history_sink`` knob: ``None`` and sink
+    instances pass through caller-owned; a PATH becomes an engine-owned
+    ``JsonlHistorySink`` the engine closes when ``run()`` completes (a
+    caller's instance is only flushed, never closed).  Returns ``(sink,
+    engine_owns_it)``.  ``mode="a"`` appends instead of truncating — the
+    resume path, where the stream already holds the earlier records."""
+    if spec is None or hasattr(spec, "write"):
+        return spec, False
+    from repro_torch.fl.scale.history import JsonlHistorySink
+    return JsonlHistorySink(spec, mode=mode), True
+
+
+def close_history_sink(sink, owned: bool) -> None:
+    """The engines' completion contract: an owned (path) sink closes, a
+    caller's sink is flushed — it may outlive the run."""
+    if sink is None:
+        return
+    if owned:
+        sink.close()
+    elif hasattr(sink, "flush"):
+        sink.flush()
 
 
 def resolve_faults(faults, resilience):
@@ -251,9 +266,18 @@ class RoundEngine:
         rounds (server state + rng / channel / validator / history aux,
         ``checkpoint_keep`` of them retained); ``resume`` (``True`` =
         from ``checkpoint_dir``, or a directory) continues a killed run
-        bitwise.  ``history_sink`` and ``obs`` raise
-        ``NotImplementedError`` when set (ROADMAP items 9 and 10)."""
-        refuse_unported(history_sink=history_sink, obs=obs)
+        bitwise.
+
+        ``history_sink`` (a ``repro_torch.fl.scale.JsonlHistorySink``, or
+        a PATH the engine opens one at, owns and closes when ``run``
+        completes) streams each :class:`RoundRecord` as it is produced;
+        ``run`` then returns an empty history (the stream IS the
+        history).  ``obs`` ("on" / "off" / "full" / a bool, or a shared
+        ``repro_torch.obs.Obs``) turns on the telemetry layer for the
+        dynamic extent of ``run`` / ``run_round``: spans, metrics and,
+        with "full", the memory auditor and the dynamics analyzer.  Off,
+        every instrumented site does one lookup and nothing else; on,
+        results are bitwise the same (docs/observability.md)."""
         self.strategy = strategy
         self.ctx = apply_prefix_cache(ctx, prefix_cache)
         self.sampler = sampler or UniformSampler()
@@ -262,12 +286,37 @@ class RoundEngine:
         self._faultrt = resolve_faults(faults, resilience)
         self._ckpt, self._resume_dir = resolve_checkpointing(
             checkpoint_every, checkpoint_dir, checkpoint_keep, resume)
+        self.history_sink, self._owns_sink = resolve_history_sink(
+            history_sink, mode="a" if self._resume_dir else "w")
+        self.obs = make_obs(obs)
+        if self.obs is not None:
+            # attach the diagnostics (memory auditor / dynamics analyzer)
+            # to this experiment — a no-op on plain captures
+            self.obs.bind(self.ctx)
 
     def default_batch_fn(self) -> Callable[[int], list]:
         return default_batch_fn(self.ctx)
 
     def run_round(self, state, round_idx: int,
                   batch_fn: Callable[[int], list]):
+        """One round (:meth:`_run_round`).  With ``obs`` on this is the
+        telemetry boundary for direct callers too: the round runs inside
+        a ``round`` span with the capture active, and the engine's byte
+        counters accumulate."""
+        if self.obs is None:
+            return self._run_round(state, round_idx, batch_fn)
+        with scope(self.obs), \
+                self.obs.tracer.span("round", round=round_idx,
+                                     engine="round"):
+            state, comm, down = self._run_round(state, round_idx, batch_fn)
+        m = self.obs.metrics
+        m.counter("engine_rounds", engine="round").inc()
+        m.counter("engine_up_bytes", engine="round").inc(comm)
+        m.counter("engine_down_bytes", engine="round").inc(down)
+        return state, comm, down
+
+    def _run_round(self, state, round_idx: int,
+                   batch_fn: Callable[[int], list]):
         """One round: broadcast (downlink accounting) -> sample -> local
         updates -> per client: fault resolution (payload damage / retry
         loop / give up) -> EF snapshot -> encode -> decode -> quarantine
@@ -278,15 +327,28 @@ class RoundEngine:
         degradation mode; an empty surviving set leaves the state as it
         is (a no-op round, never a crash).  With ``faults`` and
         ``resilience`` off every step past the local update passes its
-        result through, and the round is the fault-free one."""
+        result through, and the round is the fault-free one.
+
+        Fault-free and under ``codec="none"``, a scheduler with a fused
+        path (``ShardedScheduler(aggregate="mesh")``) is offered the
+        round first, before any batch is drawn: ``NotImplemented`` falls
+        through to the standard path with the shared stream untouched."""
         ctx, chan, rt = self.ctx, self.channel, self._faultrt
         cohort = [int(k) for k in self.sampler.sample(ctx, round_idx)]
         target = len(cohort)
         cohort = rt.overprovision(ctx, cohort)
         down = sum(chan.downlink_bytes(self.strategy, ctx, state, k)
                    for k in cohort)
+        fused = getattr(self.scheduler, "run_fused", None)
+        if fused is not None and not rt.enabled \
+                and chan.codec.name == "none":
+            out = fused(ctx, self.strategy, state, cohort, batch_fn)
+            if out is not NotImplemented:
+                new_state, comm = out
+                return new_state, comm, down
         comm = 0
         kept: List[ClientResult] = []
+        obs = self.obs
 
         def process(clients) -> int:
             nonlocal comm
@@ -310,6 +372,10 @@ class RoundEngine:
                 verdict = rt.validate_one(dec.payload, state)
                 if verdict is not None:
                     chan.rollback_uplink(k, ef_snap)
+                    rt.record_quarantine(k, verdict)
+                    if obs is not None and obs.dynamics is not None:
+                        obs.dynamics.record_rejection(
+                            round_idx, k, verdict.reason, engine="round")
                     continue
                 kept.append(dec)
                 delivered += 1
@@ -317,13 +383,18 @@ class RoundEngine:
 
         missing = target - process(cohort)
         if missing > 0:
+            rt.record_shortfall(missing)
             extra = rt.resample(ctx, cohort, missing)
             if extra:
                 down += sum(chan.downlink_bytes(self.strategy, ctx,
                                                 state, k) for k in extra)
                 process(extra)
         if kept:
-            state = self.strategy.aggregate(ctx, state, kept)
+            new_state = self.strategy.aggregate(ctx, state, kept)
+            if obs is not None and obs.dynamics is not None:
+                obs.dynamics.record_round(round_idx, state, kept, new_state,
+                                          engine="round")
+            state = new_state
         return state, comm, down
 
     def run(self, *, initial_state=None,
@@ -339,7 +410,10 @@ class RoundEngine:
         continues from it: server state (on the context's device), rng
         stream, channel state, validator calibration and the history so
         far restore to the checkpointed round's, and the loop picks up at
-        the next round, reproducing the uninterrupted run bitwise."""
+        the next round, reproducing the uninterrupted run bitwise.
+
+        With a ``history_sink`` each record streams to the sink as it is
+        produced and the returned history stays EMPTY."""
         ctx = self.ctx
         setup = getattr(self.strategy, "setup", None)
         if setup is not None:
@@ -353,28 +427,40 @@ class RoundEngine:
             start_rd = rd0 + 1
             bytes_acc = int(aux.get("bytes_acc", 0))
             down_acc = int(aux.get("down_acc", 0))
-            history = [RoundRecord(*r) for r in aux.get("history", [])]
+            if self.history_sink is None:
+                history = [RoundRecord(*r) for r in aux.get("history", [])]
             self._import_aux(aux)
         else:
             state = initial_state if initial_state is not None \
                 else self.strategy.init_state(ctx)
         batch_fn = batch_fn or self.default_batch_fn()
         t_last = time.perf_counter()
-        for rd in range(start_rd, ctx.sim.rounds):
-            state, comm, down = self.run_round(state, rd, batch_fn)
-            bytes_acc += comm
-            down_acc += down
-            if (rd + 1) % eval_every == 0 or rd == ctx.sim.rounds - 1:
-                acc = eval_state(self.strategy, ctx, state, eval_fn)
-                if ctx.device.type == "cuda":
-                    torch.cuda.synchronize(ctx.device)
-                now = time.perf_counter()
-                history.append(RoundRecord(rd + 1, acc, now - t_last,
-                                           bytes_acc, 0.0, down_acc))
-                t_last, bytes_acc, down_acc = now, 0, 0
-            if self._ckpt is not None and self._ckpt.due(rd):
-                self._ckpt.save(rd, state, self._export_aux(
-                    history, bytes_acc, down_acc))
+        try:
+            with scope(self.obs):
+                for rd in range(start_rd, ctx.sim.rounds):
+                    state, comm, down = self.run_round(state, rd, batch_fn)
+                    bytes_acc += comm
+                    down_acc += down
+                    if (rd + 1) % eval_every == 0 \
+                            or rd == ctx.sim.rounds - 1:
+                        with span_if(self.obs, "eval", round=rd + 1):
+                            acc = eval_state(self.strategy, ctx, state,
+                                             eval_fn)
+                        if ctx.device.type == "cuda":
+                            torch.cuda.synchronize(ctx.device)
+                        now = time.perf_counter()
+                        rec = RoundRecord(rd + 1, acc, now - t_last,
+                                          bytes_acc, 0.0, down_acc)
+                        if self.history_sink is not None:
+                            self.history_sink.write(rec)
+                        else:
+                            history.append(rec)
+                        t_last, bytes_acc, down_acc = now, 0, 0
+                    if self._ckpt is not None and self._ckpt.due(rd):
+                        self._ckpt.save(rd, state, self._export_aux(
+                            history, bytes_acc, down_acc))
+        finally:
+            close_history_sink(self.history_sink, self._owns_sink)
         return state, history
 
     # ----------------------------------------------- checkpoint / resume
@@ -388,7 +474,8 @@ class RoundEngine:
             "rng": self.ctx.rng.bit_generator.state,
             "channel": self.channel.export_state(),
             "faultrt": self._faultrt.export_state(),
-            "history": [list(r) for r in history],
+            "history": [list(r) for r in history]
+            if self.history_sink is None else [],
             "bytes_acc": int(bytes_acc), "down_acc": int(down_acc),
         }
 

@@ -16,9 +16,9 @@ A checkpoint is a PAIR of files per round, both written atomically:
     version, trace.
 
 Every tensor in the aux blob is written as host numpy with its dtype
-(:func:`host_tree`), so no device tensor is ever serialized, and comes
-back a tensor on the device the run resumes on, in its dtype
-(:func:`device_tree`).  This holds on the blob's pickle path too (no
+(``state_store.host_tree``), so no device tensor is ever serialized,
+and comes back a tensor on the device the run resumes on, in its dtype
+(``state_store.device_tree``).  This holds on the blob's pickle path too (no
 ``msgpack`` in the environment).
 
 ``load_latest`` walks retained rounds newest-first and requires BOTH
@@ -27,55 +27,17 @@ corrupt file) is skipped with a warning and the previous round is used.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import re
 import warnings
 from typing import Any, Optional, Tuple
 
-import numpy as np
-import torch
-
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.scale import state_store
+from repro_torch.fl.scale.state_store import (device_tree,  # noqa: F401
+                                              host_tree)
+from repro_torch.obs import active as obs_active
 from repro_torch.train import checkpoint as ckpt
-
-_TORCH = "__torch__"
-
-
-def host_tree(obj):
-    """``obj`` with every tensor replaced by ``{"__torch__": [dtype name,
-    numpy copy]}`` (bf16 as float32, exact), through dicts, lists,
-    tuples (named ones too) and dataclasses; other leaves as they are."""
-    if isinstance(obj, torch.Tensor):
-        t = obj.detach()
-        host = (t.float() if t.dtype == torch.bfloat16 else t).cpu()
-        return {_TORCH: [str(t.dtype).split(".")[-1], host.numpy()]}
-    return _rebuild(obj, host_tree)
-
-
-def device_tree(obj, device):
-    """Inverse of :func:`host_tree`: each tagged array becomes a tensor
-    on ``device`` in its recorded dtype."""
-    if isinstance(obj, dict) and set(obj) == {_TORCH}:
-        dtype, arr = obj[_TORCH]
-        return torch.from_numpy(np.array(arr)).to(device).to(
-            getattr(torch, dtype))
-    return _rebuild(obj, lambda v: device_tree(v, device))
-
-
-def _rebuild(obj, fn):
-    if isinstance(obj, dict):
-        return {k: fn(v) for k, v in obj.items()}
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(fn(v) for v in obj))
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(fn(v) for v in obj)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{
-            f.name: fn(getattr(obj, f.name))
-            for f in dataclasses.fields(obj) if f.init})
-    return obj
-
 
 def _aux_path(npz_path: str) -> str:
     return npz_path[:-len(".npz")] + ".aux"
@@ -105,6 +67,9 @@ class EngineCheckpointer:
         state_store.dump_blob(_aux_path(path), host_tree(aux))
         ckpt.save_round(self.dir, round_idx, server_tree, keep=self.keep)
         self._gc_aux()
+        obs = obs_active()
+        if obs is not None:
+            obs.metrics.counter("checkpoints_written").inc()
         return path
 
     def _gc_aux(self) -> None:
@@ -117,10 +82,13 @@ class EngineCheckpointer:
                         self.dir, f[:-len(".aux")] + ".npz")):
                 os.remove(os.path.join(self.dir, f))
 
-    def load_latest(self, device="cpu") -> Optional[Tuple[int, Any, dict]]:
+    def load_latest(self, device: DeviceLike = None
+                    ) -> Optional[Tuple[int, Any, dict]]:
         """Newest fully-loadable ``(round_idx, server_tree, aux)`` with
-        every tensor on ``device``, or ``None`` when no usable checkpoint
-        exists."""
+        every tensor on ``device`` (the GPU unless ``"cpu"`` is asked
+        for; raises when the GPU is implied and there is none), or
+        ``None`` when no usable checkpoint exists."""
+        device = resolve_device(device)
         if not os.path.isdir(self.dir):
             return None
         rounds = sorted((f for f in os.listdir(self.dir)
@@ -135,5 +103,8 @@ class EngineCheckpointer:
             except Exception as e:
                 warnings.warn(f"skipping unusable checkpoint {path}: {e}")
                 continue
+            obs = obs_active()
+            if obs is not None:
+                obs.metrics.counter("checkpoints_resumed").inc()
             return int(metadata.get("round", -1)), tree, aux
         return None

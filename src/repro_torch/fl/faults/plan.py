@@ -51,6 +51,7 @@ import torch
 
 from repro_torch.fl.comm.codecs import _is_float_array, flatten
 from repro_torch.layout import to_stacked_layout
+from repro_torch.obs import active as obs_active
 from repro_torch.tree import tree_map
 
 FAULT_KINDS = ("crash", "drop", "corrupt", "diverge", "slowdown")
@@ -136,6 +137,9 @@ class FaultInjector:
                               int(attempt),
                               frac=float(rng.uniform(0.05, 0.95)),
                               factor=float(p.slowdown_factor))
+                obs = obs_active()
+                if obs is not None:
+                    obs.metrics.counter("faults_injected", kind=kind).inc()
                 return fault
         return None
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.fl.comm.codecs import flatten
+from repro_torch.obs import active as obs_active
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,3 +132,10 @@ class UpdateValidator:
                 return Verdict("norm", norm / med)
             self._norms.append(norm)
         return None
+
+    def observe_rejection(self, verdict: Verdict, client_id: int) -> None:
+        """Count one rejection into an active telemetry capture."""
+        obs = obs_active()
+        if obs is not None:
+            obs.metrics.counter("quarantined_updates",
+                                reason=verdict.reason).inc()

@@ -34,6 +34,7 @@ import numpy as np
 
 from repro_torch.fl.faults.plan import FaultInjector, as_injector
 from repro_torch.fl.faults.quarantine import UpdateValidator, Verdict
+from repro_torch.obs import active as obs_active
 
 DEGRADATION_MODES = ("accept", "overprovision", "resample")
 
@@ -166,9 +167,19 @@ class FaultRuntime:
                 result = None
                 break
             backoff += self.policy.backoff_s(attempts)
+            obs = obs_active()
+            if obs is not None:
+                obs.metrics.counter("fault_retries", kind=fault.kind).inc()
+                obs.metrics.histogram("retry_backoff_s").observe(
+                    self.policy.backoff_s(attempts))
             result = recompute()
-        return AttemptOutcome(result, attempts, tuple(kinds),
-                              tuple(crash_fracs), drops, backoff, slow)
+        out = AttemptOutcome(result, attempts, tuple(kinds),
+                             tuple(crash_fracs), drops, backoff, slow)
+        if not out.delivered:
+            obs = obs_active()
+            if obs is not None:
+                obs.metrics.counter("client_failures").inc()
+        return out
 
     # --------------------------------------------------------- degradation
     def overprovision(self, ctx, cohort: List[int]) -> List[int]:
@@ -205,3 +216,12 @@ class FaultRuntime:
         if self.validator is None:
             return None
         return self.validator.validate_one(payload, state)
+
+    def record_quarantine(self, client_id: int, verdict: Verdict) -> None:
+        if self.validator is not None:
+            self.validator.observe_rejection(verdict, client_id)
+
+    def record_shortfall(self, missing: int) -> None:
+        obs = obs_active()
+        if obs is not None and missing > 0:
+            obs.metrics.counter("cohort_shortfall").inc(missing)

@@ -7,7 +7,11 @@ uniform without replacement); ``AvailabilityTraceSampler`` and
 the shared numpy stream in the reference's order, so a seed gives the
 reference's cohorts.  ``SequentialScheduler`` runs a cohort client by
 client; ``VectorizedScheduler`` stacks the clients that run the same
-computation (``core.blockwise.client_update_batched``).
+computation (``core.blockwise.client_update_batched``);
+``fl.scale.executor.ShardedScheduler`` fans each stacked group out over
+a list of devices (``"sharded"``).  With a telemetry capture active
+(``repro_torch.obs``) the schedulers record client-update and
+cohort-group spans and their dispatch counters.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import numpy as np
 
 from repro_torch.core.blockwise import stackable
 from repro_torch.fl.strategy import ClientResult, Context, FLStrategy
+from repro_torch.obs import active as obs_active
 
 
 class CohortSampler(Protocol):
@@ -91,8 +96,17 @@ class SequentialScheduler:
     """Run clients one after another — the reference execution model."""
 
     def run(self, ctx, strategy, state, cohort, batch_fn):
-        return [strategy.client_update(ctx, state, int(k), batch_fn(int(k)))
-                for k in cohort]
+        obs = obs_active()
+        if obs is None:
+            return [strategy.client_update(ctx, state, int(k),
+                                           batch_fn(int(k)))
+                    for k in cohort]
+        results = []
+        for k in cohort:
+            with obs.tracer.span("client-update", client=int(k)):
+                results.append(strategy.client_update(ctx, state, int(k),
+                                                      batch_fn(int(k))))
+        return results
 
 
 class VectorizedScheduler:
@@ -129,42 +143,77 @@ class VectorizedScheduler:
         groups: dict = {}
         for pos, cid in enumerate(ids):
             groups.setdefault(group_key(ctx, cid), []).append(pos)
+        obs = obs_active()
         results: List[Optional[ClientResult]] = [None] * len(ids)
         for key, positions in groups.items():
             group_batches = [batches[p] for p in positions]
             if (key is None or len(positions) < self.min_group
                     or not stackable(group_batches)):
                 for p in positions:
+                    if obs is not None:
+                        with obs.tracer.span("client-update",
+                                             client=ids[p], fallback=True):
+                            results[p] = strategy.client_update(
+                                ctx, state, ids[p], batches[p])
+                        continue
                     results[p] = strategy.client_update(ctx, state, ids[p],
                                                         batches[p])
+                if obs is not None:
+                    obs.metrics.counter("scheduler_fallback_clients",
+                                        scheduler="vectorized",
+                                        ).inc(len(positions))
                 continue
-            outs = update_batched(ctx, state, [ids[p] for p in positions],
-                                  group_batches)
+            if obs is None:
+                outs = update_batched(ctx, state,
+                                      [ids[p] for p in positions],
+                                      group_batches)
+            else:
+                # one span per stacked dispatch; on a CUDA device its
+                # seconds are the host's dispatch time (no span
+                # synchronizes the device)
+                with obs.tracer.span("cohort-group", size=len(positions),
+                                     signature=str(key)) as sp:
+                    outs = update_batched(ctx, state,
+                                          [ids[p] for p in positions],
+                                          group_batches)
+                obs.metrics.histogram("group_update_seconds",
+                                      signature=str(key),
+                                      ).observe(sp.wall_seconds)
+                obs.metrics.counter("group_dispatches",
+                                    scheduler="vectorized").inc()
+                obs.metrics.counter("group_clients",
+                                    scheduler="vectorized",
+                                    ).inc(len(positions))
             for p, res in zip(positions, outs):
                 results[p] = res
         return results
 
 
+# "module:Class" entries resolve lazily in make_scheduler: the sharded
+# scheduler lives in fl/scale (which imports this module), so a direct
+# class reference here would be a circular import
 SCHEDULERS = {
     "sequential": SequentialScheduler,
     "vectorized": VectorizedScheduler,
-    "sharded": None,
+    "sharded": "repro_torch.fl.scale.executor:ShardedScheduler",
 }
 
 
 def make_scheduler(spec=None) -> ClientScheduler:
     """Resolve a scheduler spec: ``None`` -> the sequential default, a
-    name from ``SCHEDULERS``, or a ready instance passed through."""
+    name from ``SCHEDULERS`` ("sequential", "vectorized", "sharded"), or
+    a ready instance passed through."""
     if spec is None:
         return SequentialScheduler()
     if isinstance(spec, str):
         if spec not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {spec!r}; "
                              f"available: {sorted(SCHEDULERS)}")
-        if SCHEDULERS[spec] is None:
-            raise NotImplementedError(
-                f"scheduler {spec!r} waits for the scale item "
-                f"(ROADMAP.md, queue 1, item 9: ShardedScheduler over "
-                f"torch.distributed)")
-        return SCHEDULERS[spec]()
+        entry = SCHEDULERS[spec]
+        if isinstance(entry, str):
+            import importlib
+            mod, _, cls = entry.partition(":")
+            entry = getattr(importlib.import_module(mod), cls)
+            SCHEDULERS[spec] = entry
+        return entry()
     return spec

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 from repro_torch.core import aggregation
 from repro_torch.fl import width as width_util
-from repro_torch.fl.baselines import fedavg_local, fedavg_local_batched
+from repro_torch.fl.baselines import (fedavg_group_update, fedavg_local,
+                                      fedavg_local_batched)
 from repro_torch.fl.registry import register
 from repro_torch.fl.strategies import common
 from repro_torch.fl.strategy import ClientResult
@@ -56,6 +57,13 @@ class FedAvgStrategy:
             self.sub_cfg, state, batches_per_client, lr=ctx.sim.lr,
             momentum=ctx.sim.momentum, local_steps=ctx.sim.local_steps)
         return self.group_results(ctx, state, client_ids, locals_)
+
+    def group_update_fn(self, ctx, client_ids):
+        """The full-model group SGD that ``fedavg_local_batched`` runs,
+        for executors that dispatch it themselves (the sharded
+        scheduler)."""
+        return fedavg_group_update(self.sub_cfg, ctx.sim.lr,
+                                   ctx.sim.momentum, ctx.sim.local_steps)
 
     def group_results(self, ctx, state, client_ids, locals_):
         return [ClientResult(local, float(ctx.sizes[cid]))

@@ -122,6 +122,39 @@ class BatchableFLStrategy(FLStrategy, Protocol):
 
 
 @runtime_checkable
+class ShardableFLStrategy(BatchableFLStrategy, Protocol):
+    """Optional capability: group updates a device fan-out can dispatch.
+
+    A batchable strategy that also exposes its group update as a
+    function can be driven by
+    ``repro_torch.fl.scale.executor.ShardedScheduler``, which runs that
+    very function on chunks of the group, one chunk per device.
+    Strategies without these hooks are delegated to the vectorized
+    scheduler wholesale."""
+
+    def group_update_fn(self, ctx: Context,
+                        client_ids: Sequence[int]) -> Callable:
+        """The ``(stacked_params, stacked_batches) -> stacked_locals``
+        update this group runs — the function ``client_update_batched``
+        runs, valid for any group sharing ``client_group_key``."""
+        ...
+
+    def group_results(self, ctx: Context, state: Any,
+                      client_ids: Sequence[int],
+                      locals_: Sequence) -> List["ClientResult"]:
+        """Wrap per-client updated trees into ``ClientResult``s, in
+        ``client_ids`` order — the result-shaping half of
+        ``client_update_batched``."""
+        ...
+
+    def group_mask(self, ctx: Context, state: Any, client_id: int):
+        """The trained-mask tree a masked aggregation uses for this
+        client (shared across a ``client_group_key`` group), or ``None``
+        when the strategy aggregates unmasked."""
+        ...
+
+
+@runtime_checkable
 class AsyncFLStrategy(FLStrategy, Protocol):
     """Optional capability: staleness-aware asynchronous aggregation.
 

@@ -49,9 +49,16 @@ class WindowedAvailability:
 class DutyCycleAvailability:
     """Each client is up for ``duty`` of every ``period_s`` seconds, with
     a seeded per-client phase — the classic device-charging / on-wifi
-    pattern.  Deterministic for a given (seed, num_clients)."""
+    pattern.  Deterministic for a given (seed, num_clients).
 
-    def __init__(self, period_s: float, duty: float, *, seed: int = 0):
+    ``store`` (a ``repro_torch.fl.scale.state_store`` ClientStateStore)
+    parks the materialized phase array so it can spill with the rest of
+    the per-client state; at population scale
+    ``repro_torch.fl.scale.population.HashedDutyCycle`` needs no phase
+    array at all."""
+
+    def __init__(self, period_s: float, duty: float, *, seed: int = 0,
+                 store=None):
         if not 0.0 < duty <= 1.0:
             raise ValueError(f"duty must be in (0, 1], got {duty}")
         if period_s <= 0:
@@ -59,9 +66,17 @@ class DutyCycleAvailability:
         self.period_s = float(period_s)
         self.duty = float(duty)
         self.seed = seed
+        self._store = store
         self._phases = None
 
     def _phases_for(self, n: int) -> np.ndarray:
+        if self._store is not None:
+            ph = self._store.get(("phases", n))
+            if ph is None:
+                rng = np.random.default_rng(self.seed)
+                ph = rng.uniform(0.0, self.period_s, size=n)
+                self._store[("phases", n)] = ph
+            return ph
         if self._phases is None or len(self._phases) != n:
             rng = np.random.default_rng(self.seed)
             self._phases = rng.uniform(0.0, self.period_s, size=n)

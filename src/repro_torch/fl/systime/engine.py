@@ -32,9 +32,13 @@ into a parked snapshot.
 Every record carries ``sim_seconds`` (absolute virtual time); the engine
 also keeps a ``trace`` of (kind, time, client, version, staleness)
 tuples, which equals the reference engine's for the same seed.  The
-engine runs on the context's device.  The reference's ``history_sink``
-and ``state_store`` knobs (ROADMAP item 9) and ``obs`` (item 10) raise
-``NotImplementedError`` when set.
+engine runs on the context's device.  ``history_sink`` streams the
+records and the trace to a JSONL file instead of the two lists;
+``state_store`` (a ``repro_torch.fl.scale`` ClientStateStore) parks the
+async in-flight snapshots, so a bounded ``SpillStore`` keeps at most its
+capacity resident; ``obs`` records the scheduling events as typed
+``SysEvent``s (the ``trace`` list is their legacy projection, tuple for
+tuple) beside spans and metrics.
 """
 from __future__ import annotations
 
@@ -47,9 +51,10 @@ import torch
 
 from repro_torch.fl.comm import CommChannel
 from repro_torch.fl.engine import (RoundRecord, apply_prefix_cache,
-                                   default_batch_fn, eval_state,
-                                   load_resume, refuse_unported,
-                                   resolve_checkpointing, resolve_faults)
+                                   close_history_sink, default_batch_fn,
+                                   eval_state, load_resume,
+                                   resolve_checkpointing, resolve_faults,
+                                   resolve_history_sink)
 from repro_torch.fl.sampling import CohortSampler, UniformSampler, \
     make_scheduler
 from repro_torch.fl.strategy import ClientResult, Context, FLStrategy, \
@@ -58,6 +63,10 @@ from repro_torch.fl.systime.availability import AvailabilityModel
 from repro_torch.fl.systime.clock import Event, EventLoop
 from repro_torch.fl.systime.profiles import SystemModel, zero_latency_system
 from repro_torch.fl.systime.staleness import default_aggregate_async
+from repro_torch.obs import make_obs, scope, span_if
+
+#: Staleness is measured in whole server versions — integer buckets.
+STALENESS_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
 
 
 class AsyncEngine:
@@ -90,9 +99,10 @@ class AsyncEngine:
         ``downlink`` / ``channel``, priced in both link directions from
         the encoded bytes), ``faults`` / ``resilience`` and the
         checkpoint / resume knobs (as on ``RoundEngine``; an async
-        checkpoint carries the live event heap)."""
-        refuse_unported(history_sink=history_sink, obs=obs,
-                        state_store=state_store)
+        checkpoint carries the live event heap), ``history_sink`` and
+        ``obs`` (as on ``RoundEngine``; the sink also receives the trace),
+        and ``state_store``, where async mode parks each in-flight
+        snapshot under ``("inflight", client, seq)``."""
         if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
         self.strategy = strategy
@@ -134,11 +144,65 @@ class AsyncEngine:
         self._faultrt = resolve_faults(faults, resilience)
         self._ckpt, self._resume_dir = resolve_checkpointing(
             checkpoint_every, checkpoint_dir, checkpoint_keep, resume)
+        self.history_sink, self._owns_sink = resolve_history_sink(
+            history_sink, mode="a" if self._resume_dir else "w")
+        self.state_store = state_store
+        self._inflight_seq = 0
+        self._merging = 0
         self.trace: List[tuple] = []
+        # the legacy trace list becomes the projection of the typed
+        # SysEvents; the tracer's sim clock is this engine's virtual clock
+        self.obs = make_obs(obs)
+        if self.obs is not None:
+            if self.obs.tracer.sim_clock is None:
+                self.obs.tracer.sim_clock = lambda: self.clock.now
+            self.obs.bind(self.ctx)
 
     def _trace(self, kind: str, t: float, client: int, version: int,
-               extra) -> None:
-        self.trace.append((kind, t, client, version, extra))
+               extra, attrs=None) -> None:
+        """Record one scheduling event.  The legacy tuple lands in
+        ``self.trace`` (or the sink); with telemetry on it is the
+        projection of the typed event just recorded (``attrs`` — the
+        per-phase latency split — ride only on the typed side)."""
+        if self.obs is not None:
+            event = self.obs.tracer.sys(kind, t, client, version, extra,
+                                        attrs=attrs).legacy()
+        else:
+            event = (kind, t, client, version, extra)
+        if self.history_sink is not None \
+                and hasattr(self.history_sink, "write_trace"):
+            self.history_sink.write_trace(event)
+        else:
+            self.trace.append(event)
+
+    def _phase_attrs(self, client: int, lat) -> dict:
+        """The Chrome-trace lane payload of one in-flight interval: start
+        time, the latency model's three phase durations and the client's
+        device tier (built only with telemetry on)."""
+        return {"start": float(self.clock.now),
+                "tier": self.system.profiles[client].name,
+                "download": float(lat.download),
+                "compute": float(lat.compute),
+                "upload": float(lat.upload)}
+
+    def _record(self, history: List[RoundRecord], rec: RoundRecord) -> None:
+        if self.history_sink is not None:
+            self.history_sink.write(rec)
+        else:
+            history.append(rec)
+
+    def _count_miss(self, k: int) -> None:
+        if self.obs is not None:
+            self.obs.metrics.counter(
+                "deadline_misses", tier=self.system.profiles[k].name).inc()
+
+    def _reject(self, rnd: int, k: int, verdict, engine: str) -> None:
+        """A quarantine's bookkeeping beyond the trace: the validator's
+        counter and the dynamics timeline."""
+        self._faultrt.record_quarantine(k, verdict)
+        if self.obs is not None and self.obs.dynamics is not None:
+            self.obs.dynamics.record_rejection(rnd, k, verdict.reason,
+                                               engine=engine)
 
     # ------------------------------------------------------------- helpers
     def default_batch_fn(self) -> Callable[[int], list]:
@@ -171,16 +235,24 @@ class AsyncEngine:
         return acc
 
     def _apply_async(self, state, buffered):
+        """Merge one buffer into the next server state (the version it
+        makes is ``self._merging``, for the dynamics timeline)."""
         # results travel encoded and decode only here, at the merge
         results = [self.channel.decode_result(r) for r, _ in buffered]
         stale = [s for _, s in buffered]
         agg = getattr(self.strategy, "aggregate_async", None)
         if agg is not None:
-            return agg(self.ctx, state, results, stale,
-                       alpha=self.staleness_alpha)
-        return default_aggregate_async(self.strategy, self.ctx, state,
-                                       results, stale,
-                                       alpha=self.staleness_alpha)
+            new_state = agg(self.ctx, state, results, stale,
+                            alpha=self.staleness_alpha)
+        else:
+            new_state = default_aggregate_async(
+                self.strategy, self.ctx, state, results, stale,
+                alpha=self.staleness_alpha)
+        if self.obs is not None and self.obs.dynamics is not None:
+            self.obs.dynamics.record_round(
+                self._merging, state, results, new_state, staleness=stale,
+                alpha=self.staleness_alpha, engine="systime-async")
+        return new_state
 
     # ------------------------------------------------------------------ run
     def run(self, *, initial_state=None,
@@ -211,11 +283,19 @@ class AsyncEngine:
                 else self.strategy.init_state(ctx)
             resume_at = None
         batch_fn = batch_fn or self.default_batch_fn()
-        if self.mode == "sync":
-            return self._run_sync(state, batch_fn, eval_fn, eval_every,
-                                  resume_at)
-        return self._run_async(state, batch_fn, eval_fn, eval_every,
-                               resume_at)
+        if self.obs is not None:
+            # (re)bind in case one Obs is shared across engines: the
+            # RUNNING engine's virtual clock stamps sim time
+            self.obs.tracer.sim_clock = lambda: self.clock.now
+        try:
+            with scope(self.obs):
+                if self.mode == "sync":
+                    return self._run_sync(state, batch_fn, eval_fn,
+                                          eval_every, resume_at)
+                return self._run_async(state, batch_fn, eval_fn,
+                                       eval_every, resume_at)
+        finally:
+            close_history_sink(self.history_sink, self._owns_sink)
 
     # ------------------------------------------------------------- sync mode
     def _sample_cohort(self, round_idx: int) -> np.ndarray:
@@ -240,9 +320,13 @@ class AsyncEngine:
             bytes_acc = int(aux.get("bytes_acc", 0))
             down_acc = int(aux.get("down_acc", 0))
             self.clock.now = float(aux.get("clock_now", 0.0))
-            history = [RoundRecord(*r) for r in aux.get("history", [])]
-            self.trace = [tuple(e) for e in aux.get("trace", [])]
+            if self.history_sink is None:
+                history = [RoundRecord(*r) for r in aux.get("history", [])]
+                self.trace = [tuple(e) for e in aux.get("trace", [])]
         for rd in range(start_rd, ctx.sim.rounds):
+            round_span = None if self.obs is None else \
+                self.obs.tracer.begin("round", round=rd,
+                                      engine="systime-sync")
             cohort = rt.overprovision(
                 ctx, [int(k) for k in self._sample_cohort(rd)])
             # broadcast: each client's downlink on the wire — even a
@@ -272,6 +356,8 @@ class AsyncEngine:
                                              k, res)
                     lat, up = self._latency(k, res, n_drawn.get(k, 1),
                                             downs[k])
+                    attrs = None if self.obs is None \
+                        else self._phase_attrs(k, lat)
                     if self.deadline_s is not None \
                             and lat.total > self.deadline_s:
                         chan.rollback_uplink(k, ef_snap)
@@ -279,7 +365,9 @@ class AsyncEngine:
                         self._trace("miss",
                                     float(self.clock.now
                                           + self.deadline_s),
-                                    k, rd, round(float(lat.total), 9))
+                                    k, rd, round(float(lat.total), 9),
+                                    attrs=attrs)
+                        self._count_miss(k)
                         continue
                     kept.append(chan.decode_result(res))
                     totals.append(lat.total)
@@ -288,7 +376,8 @@ class AsyncEngine:
                     # mode stamps its finish events
                     self._trace("finish",
                                 float(self.clock.now + lat.total), k,
-                                rd, round(float(lat.total), 9))
+                                rd, round(float(lat.total), 9),
+                                attrs=attrs)
                 round_time = max(totals) if totals else 0.0
                 if self.deadline_s is not None \
                         and len(kept) < len(cohort):
@@ -300,6 +389,7 @@ class AsyncEngine:
                 bytes_acc += bts
                 round_time = max(totals) if totals else 0.0
                 if n_failed > 0:
+                    rt.record_shortfall(n_failed)
                     extra = [int(k) for k in
                              rt.resample(ctx, cohort, n_failed)]
                     if extra:
@@ -320,15 +410,23 @@ class AsyncEngine:
                     round_time = min(round_time, self.deadline_s)
             self.clock.advance(round_time)
             if kept:
-                state = self.strategy.aggregate(ctx, state, kept)
+                new_state = self.strategy.aggregate(ctx, state, kept)
+                if self.obs is not None and self.obs.dynamics is not None:
+                    self.obs.dynamics.record_round(
+                        rd, state, kept, new_state, engine="systime-sync")
+                state = new_state
             self._trace("aggregate", float(self.clock.now), -1, rd,
                         len(kept))
+            if round_span is not None:
+                self.obs.tracer.end(round_span, cohort=len(cohort),
+                                    merged=len(kept))
             if (rd + 1) % eval_every == 0 or rd == ctx.sim.rounds - 1:
-                acc = self._eval(state, eval_fn)
+                with span_if(self.obs, "eval", round=rd + 1):
+                    acc = self._eval(state, eval_fn)
                 now = time.perf_counter()
-                history.append(RoundRecord(rd + 1, acc, now - t_last,
-                                           bytes_acc, self.clock.now,
-                                           down_acc))
+                self._record(history, RoundRecord(rd + 1, acc, now - t_last,
+                                                  bytes_acc, self.clock.now,
+                                                  down_acc))
                 t_last, bytes_acc, down_acc = now, 0, 0
             if self._ckpt is not None and self._ckpt.due(rd):
                 # traced BEFORE the aux export, so that the saved trace
@@ -374,11 +472,13 @@ class AsyncEngine:
                                      outcome.result)
             lat, up = self._latency(k, enc, n_drawn.get(k, 1), downs[k])
             total = float(outcome.total_seconds(lat))
+            attrs = None if self.obs is None else self._phase_attrs(k, lat)
             if self.deadline_s is not None and total > self.deadline_s:
                 chan.rollback_uplink(k, ef_snap)
                 self._trace("miss",
                             float(self.clock.now + self.deadline_s), k,
-                            rd, round(total, 9))
+                            rd, round(total, 9), attrs=attrs)
+                self._count_miss(k)
                 # the server only learns of the miss at the deadline, so
                 # the barrier waits it out
                 times.append(float(self.deadline_s))
@@ -388,16 +488,17 @@ class AsyncEngine:
             verdict = rt.validate_one(dec.payload, state)
             if verdict is not None:
                 chan.rollback_uplink(k, ef_snap)
+                self._reject(rd, k, verdict, "systime-sync")
                 bts += up
                 times.append(total)
                 self._trace("quarantine", float(self.clock.now + total),
-                            k, rd, verdict.reason)
+                            k, rd, verdict.reason, attrs=attrs)
                 continue
             kept.append(dec)
             times.append(total)
             bts += up
             self._trace("finish", float(self.clock.now + total), k, rd,
-                        round(total, 9))
+                        round(total, 9), attrs=attrs)
         return n_failed, bts
 
     # ----------------------------------------------- checkpoint / resume
@@ -406,8 +507,10 @@ class AsyncEngine:
             "rng": self.ctx.rng.bit_generator.state,
             "channel": self.channel.export_state(),
             "faultrt": self._faultrt.export_state(),
-            "history": [list(r) for r in history],
-            "trace": [list(e) for e in self.trace],
+            "history": [list(r) for r in history]
+            if self.history_sink is None else [],
+            "trace": [list(e) for e in self.trace]
+            if self.history_sink is None else [],
             "bytes_acc": int(bytes_acc), "down_acc": int(down_acc),
         }
 
@@ -421,31 +524,56 @@ class AsyncEngine:
         """Async checkpoints also carry the live event loop — clock time,
         tie-break sequence, and every scheduled finish / fail event WITH
         its in-flight payload.  Taken only at buffer-empty points, so the
-        merge buffer never needs to travel.  An in-flight payload is
+        merge buffer never needs to travel.  Snapshots parked in a
+        ``state_store`` are materialized into the blob as ``("__parked__",
+        key, value)`` and re-parked on resume.  An in-flight payload is
         pickled: a lossy codec's ``WireUpdate`` whose strategy attaches a
         rebuild closure (HeteroFL, DepthFL, SplitMix, masked FeDepth) is
         not picklable, so checkpoint async runs of those under
         ``codec="none"``, as on the reference."""
         aux = self._aux_common(history, bytes_acc, 0)
-        events = [(float(e.time), int(e.seq), e.kind, int(e.client),
-                   e.payload) for e in sorted(self.clock._heap)]
+        events = []
+        for e in sorted(self.clock._heap):
+            p = e.payload
+            if self._parked(p):
+                p = ("__parked__", p, self.state_store.get(p))
+            events.append((float(e.time), int(e.seq), e.kind,
+                           int(e.client), p))
         aux.update(kind="systime-async",
                    clock_now=float(self.clock.now),
                    clock_seq=int(self.clock._seq),
                    events=events,
                    running=sorted(int(k) for k in running),
                    version=int(version),
-                   down_acc=int(self._down_acc))
+                   down_acc=int(self._down_acc),
+                   inflight_seq=int(self._inflight_seq))
         return aux
+
+    def _parked(self, payload) -> bool:
+        """Whether an event's payload is a ``state_store`` key."""
+        return self.state_store is not None and isinstance(payload, tuple) \
+            and len(payload) == 3 and payload[0] == "inflight"
 
     def _import_clock_async(self, aux) -> None:
         self.clock = EventLoop()
         self.clock.now = float(aux["clock_now"])
         self.clock._seq = int(aux["clock_seq"])
-        heap = [Event(float(t), int(seq), str(kind), int(client), p)
-                for t, seq, kind, client, p in aux["events"]]
+        heap = []
+        for t, seq, kind, client, p in aux["events"]:
+            if isinstance(p, tuple) and p and p[0] == "__parked__":
+                _, key, value = p
+                key = tuple(key)
+                if self.state_store is not None:
+                    self.state_store[key] = value
+                    p = key
+                else:
+                    p = value          # resumed without a store: inline
+            heap.append(Event(float(t), int(seq), str(kind), int(client),
+                              p))
         heapq.heapify(heap)
         self.clock._heap = heap
+        if self.obs is not None:
+            self.obs.tracer.sim_clock = lambda: self.clock.now
 
     # ------------------------------------------------------------ async mode
     def _free_clients(self, running, *, ignore_availability=False):
@@ -478,7 +606,8 @@ class AsyncEngine:
         batches = batch_fn(k)
         # the client trains on the CURRENT state — an eager snapshot; the
         # result just doesn't merge until its finish event fires
-        res = self.strategy.client_update(self.ctx, state, k, batches)
+        with span_if(self.obs, "client-update", client=k, version=version):
+            res = self.strategy.client_update(self.ctx, state, k, batches)
         res.client_id = k
         rt = self._faultrt
         if not rt.enabled:
@@ -511,10 +640,20 @@ class AsyncEngine:
                 total = float(outcome.total_seconds(lat))
                 payload = ("__fail__", "|".join(outcome.kinds))
         running.add(k)
+        if self.state_store is not None:
+            # park the in-flight snapshot in the store (a bounded
+            # SpillStore keeps at most its capacity resident); the clock
+            # event carries only the key
+            key = ("inflight", k, self._inflight_seq)
+            self._inflight_seq += 1
+            self.state_store[key] = payload
+            payload = key
         self.clock.schedule(total, "finish", client=k, payload=payload)
         self._trace("dispatch_forced" if forced else "dispatch",
                     float(self.clock.now), k, version,
-                    round(float(total), 9))
+                    round(float(total), 9),
+                    attrs=None if self.obs is None
+                    else self._phase_attrs(k, lat))
         return True
 
     def _run_async(self, state, batch_fn, eval_fn, eval_every,
@@ -536,9 +675,11 @@ class AsyncEngine:
             running = set(int(k) for k in aux["running"])
             bytes_acc = int(aux.get("bytes_acc", 0))
             self._down_acc = int(aux.get("down_acc", 0))
+            self._inflight_seq = int(aux.get("inflight_seq", 0))
             self._import_clock_async(aux)
-            history = [RoundRecord(*r) for r in aux.get("history", [])]
-            self.trace = [tuple(e) for e in aux.get("trace", [])]
+            if self.history_sink is None:
+                history = [RoundRecord(*r) for r in aux.get("history", [])]
+                self.trace = [tuple(e) for e in aux.get("trace", [])]
         else:
             for _ in range(self.concurrency):
                 self._dispatch(state, version, running, batch_fn)
@@ -548,6 +689,8 @@ class AsyncEngine:
         while version < ctx.sim.rounds and len(self.clock):
             ev = self.clock.pop()
             payload = ev.payload
+            if self._parked(payload):
+                payload = self.state_store.pop(payload)
             running.discard(ev.client)
             did_agg = False
             dropped = False
@@ -571,6 +714,8 @@ class AsyncEngine:
                     verdict = rt.validate_one(res.payload, state)
                     if verdict is not None:
                         self.channel.rollback_uplink(ev.client, ef_snap)
+                        self._reject(version, ev.client, verdict,
+                                     "systime-async")
                         bytes_acc += up     # garbage still crossed the wire
                         dropped = True
                         self._trace("quarantine", float(self.clock.now),
@@ -580,8 +725,16 @@ class AsyncEngine:
                 bytes_acc += up
                 self._trace("finish", float(self.clock.now), ev.client,
                             version, staleness)
+                if self.obs is not None:
+                    self.obs.metrics.histogram(
+                        "staleness", buckets=STALENESS_BUCKETS,
+                        tier=self.system.profiles[ev.client].name,
+                    ).observe(staleness)
                 if len(buffered) >= self.buffer_size:
-                    state = self._apply_async(state, buffered)
+                    self._merging = version + 1
+                    with span_if(self.obs, "aggregate", version=version + 1,
+                                 merged=len(buffered)):
+                        state = self._apply_async(state, buffered)
                     version += 1
                     did_agg = True
                     self._trace("aggregate", float(self.clock.now), -1,
@@ -591,7 +744,7 @@ class AsyncEngine:
                             or version == ctx.sim.rounds:
                         acc = self._eval(state, eval_fn)
                         now = time.perf_counter()
-                        history.append(RoundRecord(
+                        self._record(history, RoundRecord(
                             version, acc, now - t_last, bytes_acc,
                             self.clock.now, self._down_acc))
                         t_last, bytes_acc = now, 0
@@ -614,8 +767,8 @@ class AsyncEngine:
         if not history or history[-1].round != version:
             acc = self._eval(state, eval_fn)
             now = time.perf_counter()
-            history.append(RoundRecord(version, acc, now - t_last,
-                                       bytes_acc, self.clock.now,
-                                       self._down_acc))
+            self._record(history, RoundRecord(version, acc, now - t_last,
+                                              bytes_acc, self.clock.now,
+                                              self._down_acc))
             self._down_acc = 0
         return state, history

@@ -1,1 +1,2 @@
-"""Launch layer of the port: the serving driver (``serve``)."""
+"""Launch layer of the port: the serving driver (``serve``) and the data
+axis of the sharded scheduler (``mesh``)."""

@@ -160,9 +160,26 @@ def apply(p: Params, cfg: ResNetConfig, images):
 def head_from_block(p: Params, cfg: ResNetConfig, x, block_idx: int):
     """Attach the classifier to an intermediate block's activation via the
     paper's skip connection: zero-pad channels to the head width, then the
-    normal head."""
+    normal head.
+
+    When the padding fills whole norm groups (PreResNet-20's widths: 16
+    and 32 channels of 64, groups of 8), the padded channels are never
+    built: a group of zeros normalizes to its bias, so each padded
+    channel's pooled feature is ``relu(bias)``, whatever the input.  The
+    head then norms and pools the real channels only, and backward holds
+    the block's own activations, not four times their size of padding
+    (the memory auditor's finding, ROADMAP.md §3, fault 17).  The values
+    are the padded head's up to the order of the pooling sum."""
     c_head = cfg.widths()[-1]
     c_cur = x.shape[1]
     if c_cur < c_head:
-        x = F.pad(x, (0, 0, 0, 0, 0, c_head - c_cur))
+        per = c_head // groups_for(c_head)
+        if c_cur % per:
+            return head(p, cfg, F.pad(x, (0, 0, 0, 0, 0, c_head - c_cur)))
+        n = p["head_norm"]
+        real = F.relu(group_norm(x, n["w"][:c_cur], n["b"][:c_cur],
+                                 groups=c_cur // per)).mean((2, 3))
+        pad = F.relu(n["b"][c_cur:]).to(real.dtype)
+        x = torch.cat([real, pad.expand(real.shape[0], -1)], dim=1)
+        return x @ p["classifier"]["w"] + p["classifier"]["b"]
     return head(p, cfg, x)

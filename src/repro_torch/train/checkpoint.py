@@ -7,7 +7,8 @@ tuple items as ``#i``, joined by ``::``), a JSON ``__manifest__`` with
 the structure (tuples and lists tagged) and the metadata, and a bf16
 leaf stored as float32 beside a ``__dtype__::<path>`` tag (npz has no
 bf16).  Tensors go to host numpy to be written; :func:`load` restores
-them on a given device, bf16 leaves in bf16.  Round-based retention for
+them on a device (the GPU unless the caller asks for ``"cpu"``), bf16
+leaves in bf16.  Round-based retention for
 FL keeps the last K rounds.
 """
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.device import DeviceLike, resolve_device
 
 _SEP = "::"
 _BF16 = b"bfloat16"
@@ -88,10 +91,13 @@ def save(path: str, tree: Any, metadata: Optional[dict] = None) -> None:
             os.remove(tmp)
 
 
-def load(path: str, *, device="cpu", dtype: Optional[torch.dtype] = None):
-    """Returns (tree, metadata): every leaf a tensor on ``device``, in its
-    stored dtype (a tagged leaf in bf16), or every floating leaf in
-    ``dtype`` when one is given."""
+def load(path: str, *, device: DeviceLike = None,
+         dtype: Optional[torch.dtype] = None):
+    """Returns (tree, metadata): every leaf a tensor on ``device`` (the
+    GPU unless ``"cpu"`` is asked for; raises when the GPU is implied and
+    there is none), in its stored dtype (a tagged leaf in bf16), or every
+    floating leaf in ``dtype`` when one is given."""
+    device = resolve_device(device)
     with np.load(path, allow_pickle=False) as data:
         manifest = json.loads(bytes(data["__manifest__"]).decode())
         tag = f"__dtype__{_SEP}"
@@ -137,11 +143,13 @@ def latest(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, rounds[-1]) if rounds else None
 
 
-def load_latest(ckpt_dir: str, *, device="cpu",
+def load_latest(ckpt_dir: str, *, device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None):
     """Newest loadable round checkpoint: ``(path, tree, metadata)`` or
-    ``None``.  A corrupt / partial ``.npz`` is skipped with a warning and
-    the previous retained round is used instead of failing the resume."""
+    ``None``, on ``device`` as :func:`load` puts it.  A corrupt / partial
+    ``.npz`` is skipped with a warning and the previous retained round is
+    used instead of failing the resume."""
+    device = resolve_device(device)
     if not os.path.isdir(ckpt_dir):
         return None
     rounds = sorted((f for f in os.listdir(ckpt_dir)

@@ -38,6 +38,7 @@ from repro_torch.fl.engine import (RoundEngine, SimConfig,  # noqa: E402
 from repro_torch.fl.faults import FaultPlan, ResiliencePolicy  # noqa: E402
 from repro_torch.fl.registry import get_strategy  # noqa: E402
 from repro_torch.fl.sampling import UniformSampler  # noqa: E402
+from repro_torch.fl.scale.state_store import InMemoryStore  # noqa: E402
 from repro_torch.testing.convert import params_to_reference  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from torch_helpers import assert_trees_close, one_torch_thread  # noqa: E402,F401
@@ -247,10 +248,13 @@ def test_knob_validation(datasets):
         T.AsyncEngine(strat, ctx, system=T.zero_latency_system(3))
     with pytest.raises(ValueError, match="checkpoint_dir"):
         T.AsyncEngine(strat, ctx, checkpoint_every=2)
-    for knob, item in (("history_sink", "item 9"),
-                       ("state_store", "item 9"), ("obs", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.AsyncEngine(strat, ctx, **{knob: "on"})
+    # the scale and telemetry knobs are ported (tests/test_torch_scale.py,
+    # tests/test_torch_obs.py): a store and a capture are taken, an
+    # unknown telemetry spec is refused
+    with pytest.raises(ValueError, match="obs must be"):
+        T.AsyncEngine(strat, ctx, obs="loud")
+    eng = T.AsyncEngine(strat, ctx, state_store=InMemoryStore(), obs="on")
+    assert eng.obs is not None and eng.state_store is not None
     eng = T.AsyncEngine(strat, ctx)
     assert eng.concurrency == 4 and eng.buffer_size == 2
 

@@ -32,7 +32,9 @@ checkpoints: a CUDA state and aux blob through ``EngineCheckpointer``
 (device and dtype kept), two async server versions of reduced mamba2
 on the card against the CPU (the same trace, atol 1e-4 / rtol 1e-3), and
 a fault's damage of a mamba2 payload on the card equal to the CPU's,
-bitwise, in fp32 and bf16.
+bitwise, in fp32 and bf16.  Scale and observability: a ``SpillStore``
+entry of CUDA tensors spilled and reloaded on the card in its dtype,
+bitwise; the memory auditor measuring a step on the card.
 """
 import dataclasses
 
@@ -888,3 +890,47 @@ def test_damage_on_the_card_equals_the_cpu(cuda, dtype):
             assert a.data_ptr() != c.data_ptr()
     assert all(torch.equal(a.cpu(), b) for a, b in
                zip(tree_leaves(on_card), tree_leaves(params)))
+
+
+def test_spill_store_keeps_device_and_dtype(cuda, tmp_path):
+    """A ``SpillStore`` entry of CUDA tensors (fp32 and bf16, an EF
+    ``(tag, residual)`` pair) leaves the hot set to disk and comes back
+    on the card in its dtype, bitwise; while resident it is the same
+    object."""
+    from repro_torch.fl.scale import SpillStore
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    entry = ("tag", {"w": torch.randn(3, 5, device=cuda, generator=gen),
+                     "h": torch.randn(7, device=cuda,
+                                      generator=gen).bfloat16()})
+    with SpillStore(1, dir=str(tmp_path)) as store:
+        store["a"] = entry
+        assert store.get("a") is entry
+        store["b"] = 0
+        assert store.spill_count == 1
+        back = store.get("a")
+        assert store.load_count == 1 and back[0] == "tag"
+        for k in ("w", "h"):
+            assert back[1][k].device.type == "cuda"
+            assert back[1][k].dtype == entry[1][k].dtype
+            assert torch.equal(back[1][k], entry[1][k])
+
+
+def test_audit_measures_a_block_step_on_the_card(cuda):
+    """The auditor measures a step on the card (the allocator's peak over
+    the step plus the arguments' bytes), returns the step's own output,
+    and keeps the peak it erased."""
+    from repro_torch.obs import MemoryAuditor
+    aud = MemoryAuditor()
+    big = torch.empty(1 << 20, device=cuda)            # 4 MiB, then freed
+    del big
+    args = ({"w": torch.ones(256, 256, device=cuda)},
+            {"images": torch.ones(8, 4, device=cuda)})
+    out = aud.audit_block_step(lambda p, b: p["w"] @ p["w"], args,
+                               family="resnet", lo=0, hi=1,
+                               variant="buffered")
+    assert torch.equal(out, args[0]["w"] @ args[0]["w"])
+    (cell,) = aud.table()
+    assert cell["status"] == "ok" and cell["batch"] == 8
+    assert cell["temp_bytes"] >= 256 * 256 * 4
+    assert cell["argument_bytes"] == (256 * 256 + 32) * 4
+    assert aud.erased_peak >= 1 << 22

@@ -40,13 +40,34 @@ def test_two_rounds_match_reference_engine(arch):
 @pytest.mark.parametrize("knob", [
     dict(scheduler="sharded"), dict(obs="on"), dict(obs=True),
     dict(history_sink="history.jsonl"), dict(history_sink=object())])
-def test_unported_engine_knobs_raise(knob):
-    """The knobs of later items (the sharded scheduler and the history
-    sink: item 9; telemetry: item 10) raise; the fault and checkpoint
-    knobs are ported (tests/test_torch_faults.py)."""
+def test_unported_engine_knobs_raise(knob, tmp_path):
+    """The knobs of the scale and telemetry layers, once refused, are
+    ported; what raises now is what the reference raises too: the
+    sharded scheduler on an LM runner (its stacked group update waits
+    for ROADMAP item 12, as the vectorized one does) and a history sink
+    that is neither a sink nor a path.  A path sink is the engine's own,
+    and a capture turns telemetry on."""
     cfg = get_reduced_config("qwen2-7b")
     ctx = build_lm_context(build_seq_data(4, vocab_size=cfg.vocab_size,
                                           device="cpu", **DATA),
                            SimConfig(**SIM), cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        RoundEngine(get_strategy("fedepth"), ctx, **knob)
+    if "history_sink" in knob and isinstance(knob["history_sink"], str):
+        knob = dict(history_sink=str(tmp_path / knob["history_sink"]))
+    if knob.get("scheduler") == "sharded":
+        from repro_torch.fl.scale import ShardedScheduler
+        engine = RoundEngine(get_strategy("fedepth"), ctx,
+                             scheduler=ShardedScheduler(min_group=1,
+                                                        mesh=["cpu"]))
+        with pytest.raises(NotImplementedError, match="item 12"):
+            engine.run()
+    elif "obs" in knob:
+        assert RoundEngine(get_strategy("fedepth"), ctx,
+                           **knob).obs is not None
+    elif isinstance(knob["history_sink"], str):
+        engine = RoundEngine(get_strategy("fedepth"), ctx, **knob)
+        assert engine._owns_sink and engine.history_sink.path == \
+            knob["history_sink"]
+        engine.history_sink.close()
+    else:
+        with pytest.raises(TypeError):
+            RoundEngine(get_strategy("fedepth"), ctx, **knob)

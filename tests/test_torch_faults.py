@@ -284,7 +284,7 @@ def test_npz_layout_shared_with_reference(tmp_path):
                                                            list)
     assert str(jtree["b"].dtype) == "bfloat16"
     j_ckpt.save(str(tmp_path / "ref.npz"), jtree, {"round": 5})
-    back, meta = ckpt.load(str(tmp_path / "ref.npz"))
+    back, meta = ckpt.load(str(tmp_path / "ref.npz"), device="cpu")
     assert meta == {"round": 5}
     assert isinstance(back["pair"], tuple) and back["b"].dtype == \
         torch.bfloat16
@@ -295,11 +295,30 @@ def test_npz_layout_shared_with_reference(tmp_path):
         assert "blocks::#1::k" in a.files and "__dtype__::b" in a.files
     # the port's own file keeps int64 (JAX's default makes it int32); a
     # dtype casts the floating leaves only
-    wide, _ = ckpt.load(str(tmp_path / "port.npz"), dtype=torch.float64)
+    wide, _ = ckpt.load(str(tmp_path / "port.npz"), device="cpu",
+                        dtype=torch.float64)
     assert wide["b"].dtype == torch.float64
     assert wide["pair"][0].dtype == torch.int64
     with pytest.raises(TypeError, match="no array"):
         ckpt.save(str(tmp_path / "x.npz"), {"a": object()})
+
+
+@pytest.mark.parametrize("what", ["load", "load_latest",
+                                  "EngineCheckpointer.load_latest"])
+def test_checkpoint_loads_default_to_the_gpu(tmp_path, monkeypatch, what):
+    """Without a device, every loader resolves the GPU, as the rest of the
+    port does: with no GPU it raises instead of loading onto the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = str(tmp_path)
+    ck = EngineCheckpointer(d, every=1)
+    ck.save(0, {"w": torch.ones(3)}, {"rng": 1})
+    path = os.path.join(d, "round_000000.npz")
+    call = {"load": lambda: ckpt.load(path),
+            "load_latest": lambda: ckpt.load_latest(d),
+            "EngineCheckpointer.load_latest": ck.load_latest}[what]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert ckpt.load(path, device="cpu")[0]["w"].device.type == "cpu"
 
 
 def test_checkpointer_atomic_and_corrupt_fallback(tmp_path):
@@ -312,12 +331,12 @@ def test_checkpointer_atomic_and_corrupt_fallback(tmp_path):
     with open(os.path.join(d, "round_000001.npz"), "wb") as f:
         f.write(b"not a zipfile")
     with pytest.warns(UserWarning, match="skipping unusable"):
-        rd, tree, aux = ck.load_latest()
+        rd, tree, aux = ck.load_latest(device="cpu")
     assert rd == 0 and aux["rng"] == 1
     assert torch.equal(tree["w"], torch.ones(3))
     os.remove(os.path.join(d, "round_000000.aux"))       # a torn pair
     with pytest.warns(UserWarning):
-        assert ck.load_latest() is None
+        assert ck.load_latest(device="cpu") is None
     # retention keeps the newest `keep` pairs, aux halves included
     k2 = EngineCheckpointer(str(tmp_path / "k"), every=1, keep=2)
     for rd in range(4):

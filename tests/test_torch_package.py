@@ -20,6 +20,8 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.fl.baselines import SplitMixState, depthfl_init_aux  # noqa: E402
 from repro_torch.fl.data import build_federated  # noqa: E402
 from repro_torch.fl.engine import SimConfig, build_context  # noqa: E402
+from repro_torch.fl.scale import Population  # noqa: E402
+from repro_torch.launch.mesh import make_data_mesh  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
 from repro_torch.configs.vit_t16 import reduced as vit_reduced  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
@@ -138,6 +140,10 @@ SYSTIME_FAULTS_PATH = ("fl.systime", "fl.systime.clock",
                        "fl.faults.resilience", "fl.faults.checkpointing",
                        "fl.scale", "fl.scale.state_store", "train",
                        "train.checkpoint")
+# the scale layer and the observability layer
+SCALE_OBS_PATH = ("fl.scale.history", "fl.scale.population",
+                  "fl.scale.executor", "launch.mesh", "obs", "obs.trace",
+                  "obs.metrics", "obs.export", "obs.audit", "obs.dynamics")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -150,7 +156,8 @@ def test_port_imports_neither_jax_nor_reference():
     names = out.stdout.split()
     assert len(names) >= 28
     missing = [m for m in IMAGE_PATH + SERVING_PATH + MOE_COMM_PATH
-               + SYSTIME_FAULTS_PATH if f"repro_torch.{m}" not in names]
+               + SYSTIME_FAULTS_PATH + SCALE_OBS_PATH
+               if f"repro_torch.{m}" not in names]
     assert not missing, missing
 
 
@@ -161,7 +168,8 @@ def test_runtime_modules_do_not_import_testing():
     code = ("import sys, repro_torch.fl.engine, repro_torch.fl.comm, "
             "repro_torch.fl.registry, repro_torch.launch.serve, "
             "repro_torch.fl.systime, repro_torch.fl.faults, "
-            "repro_torch.train.checkpoint; "
+            "repro_torch.train.checkpoint, repro_torch.fl.scale, "
+            "repro_torch.obs, repro_torch.obs.export; "
             "print(sorted(m for m in sys.modules "
             "if m.startswith('repro_torch.testing')))")
     env = {**os.environ, "PYTHONPATH": str(SRC)}
@@ -207,9 +215,16 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
         build_context(images, sim, model_cfg=rcfg)
     assert build_context(images, sim, model_cfg=rcfg,
                          device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        build_context(images, sim, model_cfg=rcfg, device="cpu",
-                      population=object())
+    # a lazily drawn population: its context and its synthesized data
+    pop = Population(num_clients=10, image_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_context(None, sim, model_cfg=rcfg, population=pop)
+    pctx = build_context(None, sim, model_cfg=rcfg, population=pop,
+                         device="cpu")
+    assert pctx.device.type == pctx.data.x_test.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_data_mesh()
+    assert make_data_mesh("cpu") == [torch.device("cpu")]
     # the baselines' own state: SplitMix's base nets, DepthFL's aux heads
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SplitMixState(rcfg, 1 / 6, 0)

@@ -383,8 +383,8 @@ def test_make_scheduler_resolution():
     assert make_scheduler(inst) is inst
     with pytest.raises(ValueError, match="unknown scheduler"):
         make_scheduler("async")
-    with pytest.raises(NotImplementedError, match="scale"):
-        make_scheduler("sharded")
+    from repro_torch.fl.scale import ShardedScheduler
+    assert isinstance(make_scheduler("sharded"), ShardedScheduler)
 
 
 def test_engine_accepts_scheduler_name():
