@@ -28,7 +28,13 @@ Phases (each fails loudly; any failure exits non-zero):
    shapes beside the slice's: the serving prefills, whisper-small's
    encoder (non-causal, 1500 frames) and cross-attention (Tq 256 and 1
    against 1500), zamba2-1.2b's shared block, scan and head,
-   whisper-small's tied head, and K3 / K4 at a decode step (T = 1);
+   whisper-small's tied head, and K3 / K4 at a decode step (T = 1).
+   The grouped launches of the stacked path (K1 with one head per
+   client, tied heads read in place; K3 with ``A`` and ``D``, K4 with
+   ``u`` per client) at every grouped shape phase 10 launches and on
+   ragged ones, each against its grouped plain version and, bitwise,
+   against its groups' own ungrouped launches (at groups=1: a (1, ...)
+   parameter against today's launch);
 4. paths: two FeDepth rounds (``RoundEngine`` over ``build_lm_context``)
    on each ported family at every published width, random weights from a
    seed: qwen2-7b (depth cut to 4 layers), mamba2-370m (all 48 layers,
@@ -140,7 +146,21 @@ Phases (each fails loudly; any failure exits non-zero):
    the Chrome trace through ``tools/trace_report.py``, the Prometheus
    snapshot, span counts, and the memory auditor's cells (every trained
    block measured; PreResNet-20's, from one audited round, within the
-   reference's envelope 0.25–4).  PreResNet-20 runs launch no kernel.
+   reference's envelope 0.25–4).  PreResNet-20 runs launch no kernel;
+10. the stacked LM path (after phase 7): at every published width, a
+   group of clients sharing one multi-block decomposition (the fewest
+   blocks whose stacked reckoning fits 72 GiB) trained by
+   ``client_update_batched`` (``vmap(grad)``, each kernel's vmap rule
+   one launch a group) against the same clients' sequential
+   ``client_update`` calls, 2 batches of 4 x 256 tokens a client:
+   mamba2-370m (48 layers, 4 clients: K1 tied + K3), rwkv6-7b (4 layers,
+   4 clients: K1 + K4) and qwen2-7b (4 layers, 3 clients, cut from 4:
+   K1 + K2).  Each client's state within rtol 2e-4 / atol 2e-5 of its
+   sequential twin, the stacked launches of each kernel the sequential
+   ones over the group size; wall, peak beside the reckoning and idle
+   share of both logged.  Then one FeDepth round of mamba2-370m over 6
+   clients (two groups of 2 stack) under the vectorized scheduler and
+   under ``ShardedScheduler(mesh=["cuda:0"])``, deterministic: bitwise.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (every timed shape beside the first under ``heads``, each with
@@ -327,44 +347,98 @@ def check_attention(gen, case: dict, timed: bool):
                 bound_peak=peak, fp32_bound_ms=fp32_bms, library_ms=lib_ms)
 
 
+def _grouped_plain_ce(h, w, labels):
+    """The plain CE of a grouped call: (each group's mean, its n_valid)
+    from the grouped plain rows."""
+    from repro_torch.kernels.chunked_ce import plain_rows
+    G = w.shape[0]
+    n = (labels >= 0).reshape(G, -1).sum(1).clamp(min=1)
+    return plain_rows(h, w, labels).reshape(G, -1).sum(1) / n, n
+
+
+def check_grouped_bitwise(what: str, grouped, one, G: int,
+                          case: dict) -> None:
+    """A grouped launch's outputs (``grouped()``, each with the batch rows
+    first) for group g's rows equal, bitwise, ``one(g)``: an ungrouped
+    launch on group g's rows and parameters (today's kernel)."""
+    import torch
+    worst = 0.0
+    for g in range(G):
+        for a, b in zip(grouped(), one(g)):
+            part = a.reshape(G, a.shape[0] // G, *a.shape[1:])[g]
+            if not torch.equal(part, b.reshape(part.shape)):
+                diff = float((part - b.reshape(part.shape)).abs().max())
+                worst = max(worst, diff) if diff == diff else math.inf
+    ok = worst == 0.0
+    log(f"  {what} {case['name']}: each of {G} groups bitwise its own "
+        f"ungrouped launch {'ok' if ok else f'FAIL ({worst:.3e})'}")
+    if not ok:
+        raise AssertionError(f"{what} {case['name']}: a grouped launch "
+                             f"differs from its groups' own ({worst})")
+
+
 def check_ce(gen, case: dict, timed: bool):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.chunked_ce import chunked_cross_entropy, plain
+    from repro_torch.kernels.chunked_ce import (chunked_cross_entropy,
+                                                cross_entropy_rows, plain)
     N, D, V = case["N"], case["D"], case["V"]
-    h = torch.randn(1, N, D, device="cuda", generator=gen)
-    w = torch.randn(D, V, device="cuda", generator=gen) / math.sqrt(D)
-    if case.get("tied"):    # the head is embed.T: a (V, D) table read in place
-        w = w.T.contiguous().T
-    labels = torch.randint(0, V, (1, N), device="cuda", generator=gen)
+    G = case.get("groups")      # a stacked launch: one head per group
+    if G is None:
+        h = torch.randn(1, N, D, device="cuda", generator=gen)
+        w = torch.randn(D, V, device="cuda", generator=gen) / math.sqrt(D)
+        if case.get("tied"):   # the head is embed.T: a (V, D) table in place
+            w = w.T.contiguous().T
+        labels = torch.randint(0, V, (1, N), device="cuda", generator=gen)
+    else:
+        h = torch.randn(G, N // G, D, device="cuda", generator=gen)
+        w = torch.randn(G, D, V, device="cuda", generator=gen) / math.sqrt(D)
+        if case.get("tied"):   # embed.transpose(1, 2) of a (G, V, D) stack
+            w = w.transpose(1, 2).contiguous().transpose(1, 2)
+        labels = torch.randint(0, V, (G, N // G), device="cuda",
+                               generator=gen)
     labels[:, ::case["ignore_every"]] = -100
     loss, n = chunked_cross_entropy(h, w, labels)
-    ref, n_ref = plain(h, w, labels)
+    ref, n_ref = plain(h, w, labels) if G is None else \
+        _grouped_plain_ce(h, w, labels)
     torch.cuda.synchronize()
-    rel = float((loss - ref).abs() / ref.abs().clamp(min=1e-30))
+    rel = float(((loss - ref).abs() / ref.abs().clamp(min=1e-30)).max())
     if case["ignore_every"] == 1:    # nothing valid: both must give 0
-        rel = float((loss - ref).abs())
-    ok = math.isfinite(rel) and rel <= CE_RTOL and int(n) == int(n_ref)
-    log(f"  cross-entropy {case['name']}: loss {float(loss):.6f} vs "
-        f"{float(ref):.6f}, rel_err {rel:.3e} (tol {CE_RTOL:g}) "
+        rel = float((loss - ref).abs().max())
+    ok = math.isfinite(rel) and rel <= CE_RTOL and bool((n == n_ref).all())
+    log(f"  cross-entropy {case['name']}: loss {loss.tolist()} vs "
+        f"{ref.tolist()}, rel_err {rel:.3e} (tol {CE_RTOL:g}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"chunked CE {case['name']}: {rel}")
+    if G is not None:
+        check_grouped_bitwise(
+            "cross-entropy", lambda: (cross_entropy_rows(h, w, labels),),
+            lambda g: (cross_entropy_rows(h[g:g + 1], w[g],
+                                          labels[g:g + 1]),), G, case)
     if not timed:
-        return dict(max_abs_err=float((loss - ref).abs()))
+        return dict(max_abs_err=float((loss - ref).abs().max()))
     if case.get("f64"):
         check_ce_against_f64(case, h, w, labels)
-    err = float((loss - ref).abs())
+    err = float((loss - ref).abs().max())
     ms = time_ms(lambda: chunked_cross_entropy(h, w, labels), 5, warmup=1)
     device_ms = time_ms(lambda: chunked_cross_entropy(h, w, labels), 5,
                         warmup=1, fill=True)
-    plain_ms = time_ms(lambda: plain(h, w, labels), 5, warmup=1)
     flat = labels.reshape(-1)
-    lib_ms = time_ms(lambda: F.cross_entropy(h[0] @ w, flat,
-                                             ignore_index=-100), 5,
-                     warmup=1)
+    if G is None:
+        plain_ms = time_ms(lambda: plain(h, w, labels), 5, warmup=1)
+        lib_ms = time_ms(lambda: F.cross_entropy(h[0] @ w, flat,
+                                                 ignore_index=-100), 5,
+                         warmup=1)
+    else:   # the plain grouped mean; the library: one bmm, one CE
+        plain_ms = time_ms(lambda: _grouped_plain_ce(h, w, labels), 5,
+                           warmup=1)
+        lib_ms = time_ms(lambda: F.cross_entropy(
+            torch.bmm(h, w).reshape(-1, V), flat, ignore_index=-100), 5,
+            warmup=1)
     # the kernel's work: three TF32 products (small*big, big*small,
-    # big*big) of 2*N*D*V flops each, on the tensor cores
+    # big*big) of 2*N*D*V flops each, on the tensor cores (each row
+    # against its own group's head)
     flops = 3 * 2.0 * N * D * V
     nbytes = 4.0 * (h.numel() + w.numel()) + 8.0 * N + 4.0
     bms, by, peak = bound_ms(flops, nbytes, PEAK_TF32)
@@ -479,10 +553,12 @@ def check_mamba2(gen, case: dict, timed: bool):
     x = torch.randn(B, T, H, P, device=dev, generator=gen)
     dt = F.softplus(torch.randn(B, T, H, device=dev, generator=gen)) \
         * dt_scale
-    A = -torch.exp(torch.randn(H, device=dev, generator=gen))
+    G = case.get("groups")     # a stacked launch: A and D per group
+    hs = (H,) if G is None else (G, H)
+    A = -torch.exp(torch.randn(*hs, device=dev, generator=gen))
     Bm = torch.randn(B, T, N, device=dev, generator=gen)
     Cm = torch.randn(B, T, N, device=dev, generator=gen)
-    D = torch.randn(H, device=dev, generator=gen)
+    D = torch.randn(*hs, device=dev, generator=gen)
     s0 = (torch.randn(B, H, P, N, device=dev, generator=gen)
           if case.get("s0") else torch.zeros(B, H, P, N, device=dev))
     if dt_scale != 1.0:
@@ -493,6 +569,13 @@ def check_mamba2(gen, case: dict, timed: bool):
                           (x, dt, A, Bm, Cm, D, s0))
         x = x / dt_scale
     args = (x, dt, A, Bm, Cm, D, s0)
+    if G is not None:
+        rows = B // G
+        check_grouped_bitwise(
+            "mamba2 scan", lambda: mamba2_scan(*args),
+            lambda g: mamba2_scan(*(
+                a[g] if i in (2, 5) else a[g * rows:(g + 1) * rows]
+                for i, a in enumerate(args))), G, case)
     # per (b, h, t): 5 flops per state element (da*h + dx*B, then h*C
     # into y) and 3 per row (dx, D*x, the sum); bytes: x, y, dt, B, C,
     # A, D and the state in and out, each once
@@ -514,7 +597,9 @@ def check_rwkv6(gen, case: dict, timed: bool):
     w = torch.randn(B, T, H, D, device=dev, generator=gen) * 0.5 - 0.5
     if case.get("overflow"):    # exp(w) = inf: the decay must be exactly 0
         w[:, ::3] = 100.0
-    u = torch.randn(H, D, device=dev, generator=gen) * 0.1
+    G = case.get("groups")     # a stacked launch: u per group
+    u = torch.randn(*((H, D) if G is None else (G, H, D)), device=dev,
+                    generator=gen) * 0.1
     s0 = (torch.randn(B, H, D, D, device=dev, generator=gen)
           if case.get("s0") else torch.zeros(B, H, D, D, device=dev))
     if case.get("decay_one"):
@@ -526,6 +611,13 @@ def check_rwkv6(gen, case: dict, timed: bool):
         check_against_f64("rwkv6 scan", rwkv6_scan, plain, case,
                           (r, k, v, w, u, s0))
         v = v / 16.0
+    if G is not None:
+        rows, args = B // G, (r, k, v, w, u, s0)
+        check_grouped_bitwise(
+            "rwkv6 scan", lambda: rwkv6_scan(*args),
+            lambda g: rwkv6_scan(*(
+                a[g] if i == 4 else a[g * rows:(g + 1) * rows]
+                for i, a in enumerate(args))), G, case)
     # per (b, h, t), the least work: r S_{t-1} (2 flops per state
     # element), S = d*S + k v (3 per element), and the bonus term
     # v_e * sum_d r_d u_d k_d (5 per row); bytes: r, k, v, w, y, u and the
@@ -543,17 +635,21 @@ def _case_key(kernel: str, case: dict) -> tuple:
         return (*(case[k] for k in ("B", "Tq", "Tk", "Hq", "Hkv", "D")),
                 bool(case["causal"]), int(case["window"]),
                 int(case["q_offset"]))
+    groups = case.get("groups", 1)
     if kernel == "chunked_cross_entropy":
-        return (case["N"], case["D"], case["V"], bool(case.get("tied")))
+        return (case["N"], case["D"], case["V"], bool(case.get("tied")),
+                groups)
     if kernel == "mamba2_scan":
-        return tuple(case[k] for k in ("B", "T", "H", "P", "N"))
-    return tuple(case[k] for k in ("B", "T", "H", "D"))
+        return (*(case[k] for k in ("B", "T", "H", "P", "N")), groups)
+    return (*(case[k] for k in ("B", "T", "H", "D")), groups)
 
 
 def _launch_key(kernel: str, args: tuple, kw: dict) -> tuple:
     """The shape of one wrapper call: K2's (B, Tq, Tk, Hq, Hkv, D, causal,
-    window, q_offset), K1's (rows, D, V, head read as a (V, D) table),
-    K3's (B, T, H, P, N), K4's (B, T, H, D)."""
+    window, q_offset), K1's (rows, D, V, head read as a (V, D) table,
+    groups), K3's (B, T, H, P, N, groups), K4's (B, T, H, D, groups):
+    ``groups`` is the count of per-client heads, ``A`` / ``D`` or ``u`` a
+    stacked (vmapped) launch reads, 1 where they are shared."""
     if kernel == "flash_attention":
         q, k = args[0], args[1]
         return (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
@@ -561,11 +657,14 @@ def _launch_key(kernel: str, args: tuple, kw: dict) -> tuple:
                 int(kw.get("sliding_window") or 0), int(kw.get("q_offset", 0)))
     if kernel == "chunked_cross_entropy":
         h, w = args[0], args[1]
-        return (h.numel() // h.shape[-1], w.shape[0], w.shape[1],
-                w.stride(-1) != 1)
+        return (h.numel() // h.shape[-1], w.shape[-2], w.shape[-1],
+                w.stride(-1) != 1, w.shape[0] if w.dim() == 3 else 1)
     if kernel == "mamba2_scan":
-        return (*args[0].shape, args[3].shape[-1])
-    return tuple(args[0].shape)
+        A = args[2]
+        return (*args[0].shape, args[3].shape[-1],
+                A.shape[0] if A.dim() == 2 else 1)
+    u = args[4]
+    return (*args[0].shape, u.shape[0] if u.dim() == 3 else 1)
 
 
 def phase_kernels():
@@ -680,6 +779,11 @@ def phase_kernels():
         dict(attn, name="qwen3-moe-235b-a22b eval B16 T256 Hq64 Hkv4 D128 "
              "causal", B=16, Hq=64, Hkv=4, seed=43, timed=True,
              path="qwen3-moe-235b-a22b"),
+        # phase 10: qwen2-7b's stacked group of 3 clients, folded into the
+        # batch axis (its group of 4 clients shares B 16 with the eval)
+        dict(attn, name="qwen2-7b stacked, 3 clients folded B12 T256 Hq28 "
+             "Hkv4 D128 causal", B=12, seed=50, timed=True,
+             path="qwen2-7b"),
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
@@ -715,6 +819,31 @@ def phase_kernels():
         dict(name="qwen3-moe-235b-a22b head N1024 D4096 V151936", N=1024,
              D=4096, V=151936, ignore_every=7, timed=True, f64=True,
              path="qwen3-moe-235b-a22b"),
+        # grouped launches (the stacked path: one head per client, each
+        # group's rows against its own), each also held bitwise to its
+        # groups' own ungrouped launches; at groups=1 that is today's
+        # kernel on a (1, D, V) head
+        dict(name="groups=1: a (1, D, V) head, ragged N=300 D=200 V=1000",
+             N=300, D=200, V=1000, ignore_every=5, groups=1, seed=51),
+        dict(name="groups=1: a tied (1, V, D) table, N=333 D=203 V=1001",
+             N=333, D=203, V=1001, ignore_every=4, tied=True, groups=1,
+             seed=52),
+        dict(name="3 groups, unaligned D=203 V=1001 N=333 (4-byte copies)",
+             N=333, D=203, V=1001, ignore_every=4, groups=3, seed=53),
+        dict(name="3 tied groups, ragged N=300 D=200 V=1000", N=300, D=200,
+             V=1000, ignore_every=5, tied=True, groups=3, seed=54),
+        dict(name="qwen2-7b stacked heads, 3 groups N3072 D3584 V152064",
+             N=3072, D=3584, V=152064, ignore_every=7, groups=3, seed=55,
+             path="qwen2-7b"),
+        dict(name="mamba2-370m stacked tied heads, 4 groups N4096 D1024 "
+             "V50288", N=4096, D=1024, V=50288, ignore_every=7, tied=True,
+             groups=4, seed=56, path="mamba2-370m", f64=True),
+        dict(name="mamba2-370m engine group of 2, tied N2048 D1024 V50288",
+             N=2048, D=1024, V=50288, ignore_every=7, tied=True, groups=2,
+             seed=57, path="mamba2-370m"),
+        dict(name="rwkv6-7b stacked heads, 4 groups N4096 D4096 V65536",
+             N=4096, D=4096, V=65536, ignore_every=7, groups=4, seed=58,
+             path="rwkv6-7b"),
     ]
     for case in ce_cases:    # every path's head is timed
         if case.get("path"):
@@ -748,6 +877,17 @@ def phase_kernels():
              seed=38, path="mamba2-370m"),
         dict(name="zamba2-1.2b eval B16 T256 H64 P64 N64", B=16, T=256,
              H=64, P=64, N=64, seed=39, path="zamba2-1.2b"),
+        # grouped launches: A and D per group of B/G rows
+        dict(name="groups=1: (1, H) A and D, reduced B2 T37 H8 P32 N16",
+             B=2, T=37, H=8, P=32, N=16, s0=True, groups=1, seed=59),
+        dict(name="3 groups, P=40 N=24, ragged T=77, initial state", B=6,
+             T=77, H=3, P=40, N=24, s0=True, groups=3, seed=60),
+        dict(ssd, name="mamba2-370m stacked, 4 groups B16 T256 H32 P64 "
+             "N128", B=16, groups=4, seed=61, timed=True,
+             path="mamba2-370m"),
+        dict(ssd, name="mamba2-370m engine group of 2, B8 T256 H32 P64 "
+             "N128", B=8, groups=2, seed=62, timed=True,
+             path="mamba2-370m"),
     ]
     wkv = dict(B=4, T=256, H=64, D=64)
     wkv_cases = [
@@ -771,6 +911,13 @@ def phase_kernels():
              seed=19, timed=True, path="rwkv6-7b"),
         dict(wkv, name="rwkv6-7b eval B16 T256 H64 D64", B=16, seed=40,
              path="rwkv6-7b"),
+        # grouped launches: u per group of B/G rows
+        dict(name="groups=1: a (1, H, D) u, reduced B2 T37 H4 D32", B=2,
+             T=37, H=4, D=32, s0=True, groups=1, seed=63),
+        dict(name="3 groups, D=30 (4-byte copies), T=40", B=3, T=40, H=3,
+             D=30, s0=True, groups=3, seed=64),
+        dict(wkv, name="rwkv6-7b stacked, 4 groups B16 T256 H64 D64", B=16,
+             groups=4, seed=65, timed=True, path="rwkv6-7b"),
     ]
     for case in attn_cases + ssd_cases + wkv_cases:
         if case.get("B") == 16:      # the engine's eval: timed as well
@@ -3401,7 +3548,206 @@ def phase_scale(data, smi: str) -> dict:
     return by_run
 
 
+# --------------------------------------------------------------- phase 10
 K1_K2 = ("chunked_cross_entropy", "flash_attention")
+STACKED_RUNS = (
+    # (arch, layers, kernels that must launch, clients in the group):
+    # each at every published width, phase 4's batches
+    ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan"), 4),
+    ("rwkv6-7b", 4, ("chunked_cross_entropy", "rwkv6_scan"), 4),
+    # cut from 4 clients: reckoned 80.2 GiB at 4, 62.0 at 3
+    ("qwen2-7b", 4, K1_K2, 3),
+)
+STACKED_BATCHES = 2      # batches of 4 x 256 tokens a client
+
+
+def _reckon_stacked(cfg, blocks: tuple, group: int) -> tuple:
+    """A stacked group update's reckoned peak: the broadcast state's
+    parameters, then ``group`` times one client's reckoning
+    (:func:`_reckon_client`: the stacked leaves, each block's clones,
+    momentum, gradients and activations all carry the client axis)."""
+    from repro_torch.core.memory_model import lm_memory
+    one, _, _ = _reckon_client(cfg, blocks, STACKED_BATCHES)
+    params = lm_memory(cfg, 4, 256).param_bytes()
+    return params + group * one, one + params
+
+
+def _stacked_setup(arch: str, layers: int, group: int):
+    """The run's config, a 6-client ``fair`` context over phase 4's data
+    (its decompositions), the shared decomposition (the fewest blocks,
+    at least 2, whose stacked reckoning fits RECKON_LIMIT) and ``group``
+    clients' batches drawn as the engine draws them."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.fl.engine import SimConfig
+    from repro_torch.fl.seq import build_lm_context, build_seq_data
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    sim = SimConfig(rounds=1, participation=0.5, lr=0.05, momentum=0.9,
+                    local_steps=1, batch_size=4, scenario="fair", seed=0)
+    data = build_seq_data(6, n_per_client=16, n_test=16,
+                          vocab_size=cfg.vocab_size, seq_len=256, seed=0)
+    ctx = build_lm_context(data, sim, cfg)
+    fits = [d for d in ctx.decomps if len(d.blocks) >= 2
+            and _reckon_stacked(cfg, d.blocks, group)[0] <= RECKON_LIMIT]
+    if not fits:
+        raise AssertionError(f"{arch}: no multi-block decomposition of a "
+                             f"group of {group} fits {RECKON_LIMIT} B")
+    dec = min(fits, key=lambda d: len(d.blocks))
+    rng = np.random.default_rng(0)
+    bpc = [[data.client_batch(k, sim.batch_size, rng)
+            for _ in range(STACKED_BATCHES)] for k in range(group)]
+    return cfg, dec, bpc
+
+
+def _profiled_count(fn):
+    """``fn()`` counted (:func:`_counted`) under :func:`device_busy`:
+    (its result, launches, launches by shape, wall s, device-busy s)."""
+    (out, launches, _, shapes), wall, busy, _ = device_busy(
+        lambda: _counted(fn))
+    return out, launches, shapes, wall, busy
+
+
+def phase_stacked_run(arch: str, layers: int, kernels: tuple, group: int,
+                      smi: str) -> dict:
+    """One group of ``group`` clients sharing one decomposition at every
+    published width: ``client_update_batched`` (one ``vmap(grad)`` a
+    step, each kernel launched once a group) against ``group``
+    sequential ``client_update`` calls from the same state.  Each
+    client's state within rtol 2e-4 / atol 2e-5 of its sequential twin;
+    the stacked run's launches of each kernel the sequential run's over
+    the group size; both runs' reckoned peaks within RECKON_LIMIT.
+    Logs wall, peak, idle share and launches of both.  Returns the two
+    runs' (launches, shapes) for the kernel line."""
+    import torch
+    from repro_torch.core import blockwise
+    from repro_torch.models import build
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, dec, bpc = _stacked_setup(arch, layers, group)
+    lm = build(cfg)
+    runner = blockwise.lm_runner(lm)
+    params = lm.init(0, device="cuda")
+    kw = dict(lr=0.05, momentum=0.9)
+    reckoned, one = _reckon_stacked(cfg, dec.blocks, group)
+    name = f"{cfg.name} ({layers} layers), a group of {group}"
+    log(f"stacked {name}: blocks {dec.blocks} (skipped prefix "
+        f"{dec.skipped_prefix}), {STACKED_BATCHES} batches of 4 x 256 a "
+        f"client; reckoned peak {reckoned / GIB:.2f} GiB stacked, "
+        f"{one / GIB:.2f} GiB a sequential client ({smi})")
+    seq_host, seq_launches, seq_shapes = [], {}, {}
+    seq_wall = seq_busy = 0.0
+    seq_peak = 0
+    for b in bpc:
+        torch.cuda.reset_peak_memory_stats()
+        out, launches, shapes, wall, busy = _profiled_count(
+            lambda: blockwise.client_update(runner, params, dec, b, **kw))
+        seq_peak = max(seq_peak, torch.cuda.max_memory_allocated())
+        seq_wall, seq_busy = seq_wall + wall, seq_busy + busy
+        for k, n in launches.items():
+            seq_launches[k] = seq_launches.get(k, 0) + n
+        for k, per in shapes.items():
+            into = seq_shapes.setdefault(k, {})
+            for key, n in per.items():
+                into[key] = into.get(key, 0) + n
+        seq_host.append(tree_map(lambda t: t.cpu(), out))
+        del out
+    log(f"  sequential: {group} client updates {seq_wall:.2f} s, peak "
+        f"{seq_peak / GIB:.2f} GiB, idle share "
+        f"{1 - seq_busy / seq_wall:.4f}, launches {seq_launches}")
+    _held_to_reckoning("  sequential", seq_peak, one, gate=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vec, vec_launches, vec_shapes, vec_wall, vec_busy = _profiled_count(
+        lambda: blockwise.client_update_batched(runner, params, dec, bpc,
+                                                **kw))
+    vec_peak = torch.cuda.max_memory_allocated()
+    log(f"  stacked: one group update {vec_wall:.2f} s (x"
+        f"{seq_wall / vec_wall:.2f} the sequential), peak "
+        f"{vec_peak / GIB:.2f} GiB, idle share "
+        f"{1 - vec_busy / vec_wall:.4f}, launches {vec_launches}")
+    _held_to_reckoning("  stacked", vec_peak, reckoned, gate=False)
+    worst = 0.0
+    for c in range(group):
+        twin = tree_map(lambda t: t.to("cuda"), seq_host[c])
+        worst = max(worst, _states_within(vec[c], twin))
+        del twin
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(vec[0]), tree_leaves(params)))
+    log(f"  each client's state vs its sequential twin: max abs diff "
+        f"{worst:.3e} (rtol 2e-4 / atol 2e-5), moved {moved:.3e}")
+    per_group = {k: (seq_launches[k], vec_launches[k]) for k in kernels}
+    bad = [k for k, (a, b) in per_group.items() if b <= 0 or a != group * b]
+    others = [k for k, n in vec_launches.items() if n and k not in kernels]
+    log(f"  forward launches, sequential vs stacked: {per_group} (one "
+        f"launch a group: the sequential's / {group}) "
+        f"{'ok' if not bad and not others else 'FAIL'}")
+    if bad or others or not moved > 0:
+        raise AssertionError(f"stacked {name}: launches {per_group} (not "
+                             f"one a group: {bad}; others {others}), moved "
+                             f"{moved}")
+    del vec, seq_host, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {(arch, f"stacked sequential twin, {group} clients"):
+            (seq_launches, seq_shapes),
+            (arch, f"stacked group of {group}"): (vec_launches, vec_shapes)}
+
+
+def phase_stacked_rounds(smi: str) -> dict:
+    """One FeDepth round of mamba2-370m (48 layers) under
+    ``RoundEngine(scheduler="vectorized")`` and one under
+    ``ShardedScheduler(mesh=["cuda:0"])``, every client of 6 (``fair``:
+    two pairs share a decomposition, so two groups of 2 stack), under
+    deterministic algorithms: the sharded round's state bitwise the
+    vectorized one's, its bytes equal; group sizes, wall, peak and
+    launches logged."""
+    import collections
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fl.engine import RoundEngine, SimConfig
+    from repro_torch.fl.registry import get_strategy
+    from repro_torch.fl.scale import ShardedScheduler
+    from repro_torch.fl.seq import build_lm_context, build_seq_data
+    cfg = get_config("mamba2-370m")
+    sim = SimConfig(rounds=1, participation=1.0, lr=0.05, momentum=0.9,
+                    local_steps=1, batch_size=4, scenario="fair", seed=0)
+    data = build_seq_data(6, n_per_client=4 * STACKED_BATCHES, n_test=16,
+                          vocab_size=cfg.vocab_size, seq_len=256, seed=0)
+    runs, by_run = {}, {}
+    for label, scheduler in (
+            ("vectorized", "vectorized"),
+            ("sharded", ShardedScheduler(mesh=["cuda:0"]))):
+        ctx = build_lm_context(data, sim, cfg)
+        engine = RoundEngine(get_strategy("fedepth"), ctx,
+                             scheduler=scheduler)
+        cohorts, _ = _instrument(engine)
+        with deterministic():
+            state, history, launches, shapes, peak, wall, _ = _scale_run(
+                f"mamba2-370m, 1 FeDepth round, {label}", smi, engine)
+        keys = collections.Counter(
+            engine.strategy.client_group_key(ctx, k) for k in cohorts[0])
+        sizes = sorted(keys.values(), reverse=True)
+        log(f"  {label}: cohort {cohorts[0]}, group sizes {sizes}")
+        if sizes[0] < 2:
+            raise AssertionError(f"{label}: no group of 2 or more {sizes}")
+        runs[label] = (state, history, None)
+        by_run["mamba2-370m", f"{label} round"] = (launches, shapes)
+        del engine, ctx
+    _same_run("mamba2-370m sharded (one card) vs vectorized round",
+              runs["sharded"], runs["vectorized"])
+    return by_run
+
+
+def phase_stacked(smi: str) -> dict:
+    """Phase 10: the stacked (vectorized and sharded) LM path."""
+    t0 = time.perf_counter()
+    by_run = {}
+    for arch, layers, kernels, group in STACKED_RUNS:
+        by_run.update(phase_stacked_run(arch, layers, kernels, group, smi))
+    by_run.update(phase_stacked_rounds(smi))
+    log(f"phase 10 (the stacked LM path): {time.perf_counter() - t0:.1f} s")
+    return by_run
+
+
 PATHS = (
     # (arch, layers, kernels that must launch on the path, method)
     ("qwen2-7b", 4, K1_K2, "fedepth"),
@@ -3504,6 +3850,7 @@ def main() -> int:
     for arch, runs in phase_serving().items():
         for stage, run in runs.items():
             by_run[arch, f"serve {stage}"] = run
+    by_run.update(phase_stacked(smi))
     kernels = [dict(name=name, **KERNEL_META[name], **numbers[name])
                for name in KERNEL_META]
     attribute_launches(kernels, checked, by_run)

@@ -29,10 +29,14 @@ head).
 
 Stacked execution (the substrate of ``fl.sampling.VectorizedScheduler``):
 :func:`client_update_batched` runs a group of clients that share one
-decomposition as one computation over a leading client axis —
-``torch.func.vmap`` of ``torch.func.grad`` for the gradients, the
-momentum update on the stacked leaves outside it.  It covers the image
-runners (ResNet, ViT); the LM runners' kernels have no vmap rules yet.
+decomposition as one computation over a leading client axis — the loss
+``torch.func.vmap``-ed over the clients, plain autograd of the clients'
+summed losses for every client's gradient at once (the reference's
+``vmap(grad)``: clients share nothing, so each gets its own), the
+momentum update on the stacked leaves outside it.  It covers every
+runner: the image runners (ResNet, ViT) and each LM family, whose
+kernels (K1–K4) batch over the client axis through the ``vmap`` rules of
+``kernels/ops.py``, one launch a group.
 """
 from __future__ import annotations
 
@@ -67,8 +71,7 @@ class BlockRunner:
     # prefix: tied embeddings, zamba2's shared block, whisper's enc_norm;
     # the prefix is then re-buffered per subproblem)
     prefix_stable: bool = True
-    # model family ("resnet", "vit" or the LM config's family); the
-    # stacked path refuses the LM families (:func:`make_group_update`)
+    # model family ("resnet", "vit", "whisper" or the LM config's family)
     family: str = "?"
 
 
@@ -584,11 +587,6 @@ def full_model_loss(runner: BlockRunner, params, batch):
 # --------------------------------------------------------------------------
 # stacked (vmap-over-clients) execution — substrate of VectorizedScheduler
 # --------------------------------------------------------------------------
-# the image runners' families: every other runner (each LM family) calls
-# the port's kernels (K1–K4), whose autograd Functions have no vmap rules
-# yet (ROADMAP.md, queue 1, item 12)
-_IMAGE_FAMILIES = ("resnet", "vit")
-
 
 def broadcast_tree(tree, group: int):
     """Stack ``tree`` along a new leading client axis of size ``group``.
@@ -640,6 +638,36 @@ def run_local_steps(step, carry, batches, local_steps: int):
     return carry
 
 
+def stacked_grads(loss, in_dims):
+    """``grads(train, *rest)``: every client's gradient of ``loss(train,
+    *rest)`` with respect to its own ``train``, over stacked ``(clients,
+    ...)`` leaves, as a list in ``tree_leaves(train)`` order.  The loss
+    is vmapped over the clients (``in_dims`` as ``torch.func.vmap``
+    takes them), then plain autograd takes the summed losses' gradient:
+    clients share nothing, so each client's slice of it is its own
+    gradient, as ``vmap(grad(loss))`` gives it.  (``torch.func.grad``
+    under ``vmap`` keeps about twice the activations of plain autograd:
+    it OOMed a group of 4 full-width mamba2-370m clients on an 80 GB
+    card.)  A leaf the loss does not reach (an untied LM's embedding at
+    ``lo == 0``) has zero gradient, as on the sequential path."""
+    losses = torch.func.vmap(loss, in_dims=in_dims)
+
+    def grads(train, *rest):
+        leaves = tree_leaves(train)
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            out = torch.autograd.grad(losses(train, *rest).sum(), leaves,
+                                      allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        return [torch.zeros_like(t) if g is None else g
+                for t, g in zip(leaves, out)]
+
+    return grads
+
+
 @torch.no_grad()
 def _momentum_step_(train, vel, grads, *, lr: float, momentum: float):
     """The sequential step's update on stacked leaves, in place:
@@ -654,10 +682,11 @@ def make_group_update(runner: BlockRunner, blocks, *, lr: float,
                       prox_mu: float = 0.0, prefix_cache: bool = True):
     """The group update: a whole depth-wise local update (all blocks, all
     SGD steps) over stacked ``(clients, ...)`` parameters and batches.
-    Each step takes every client's gradient in one
-    ``vmap(grad(loss))`` call — vs. clients x blocks x steps autograd
-    calls on the sequential path — and the momentum update on the
-    stacked leaves.
+    Each step takes every client's gradient in one backward pass — the
+    loss vmapped over the clients, then ``torch.autograd.grad`` of the
+    summed losses, vs. clients x blocks x steps autograd calls on the
+    sequential path (:func:`stacked_grads`) — and the momentum update on
+    the stacked leaves.
 
     ``blocks`` is the shared ``Decomposition.blocks``; momentum and the
     FedProx anchor reset per block, as in :func:`client_update`, and
@@ -665,15 +694,13 @@ def make_group_update(runner: BlockRunner, blocks, *, lr: float,
     sequential order.  With ``prefix_cache`` (default) the buffered
     z_{lo-1} is computed once per distinct batch per subproblem,
     vmapped over the clients, and advanced through the just-trained
-    units when ``runner.prefix_stable``.  The returned function trains
+    units when ``runner.prefix_stable`` (re-buffered per subproblem
+    otherwise: tied heads, zamba2, whisper).  Every runner takes it: an
+    LM runner's kernels launch once per step for the whole group
+    (``kernels/ops.py``'s vmap rules).  The returned function trains
     clones of each block's split and returns a new stacked tree; the
     stacked parameters it is given are not written."""
-    if runner.family not in _IMAGE_FAMILIES:
-        raise NotImplementedError(
-            f"the stacked (vectorized) path for {runner.family!r} LM "
-            f"runners waits for vmap rules on the K1-K4 autograd Functions "
-            f"(ROADMAP.md, queue 1, item 12); use the sequential scheduler")
-    vmap, grad = torch.func.vmap, torch.func.grad
+    vmap = torch.func.vmap
 
     def make_step(lo, hi, j, anchor, params):
         def loss(tp, params, anchor, z_in, batch):
@@ -684,15 +711,15 @@ def make_group_update(runner: BlockRunner, blocks, *, lr: float,
                 out = out + _prox_term(tp, anchor, prox_mu)
             return out
 
-        grads = vmap(grad(loss), in_dims=(0, 0, 0, 0 if prefix_cache
-                                          else None, 0))
+        grads = stacked_grads(loss, in_dims=(0, 0, 0, 0 if prefix_cache
+                                             else None, 0))
 
         def step(carry, x):
             train, vel = carry
             z_in, batch = x if prefix_cache else (None, x)
             g = grads(train, params, anchor, z_in, batch)
-            _momentum_step_(tree_leaves(train), tree_leaves(vel),
-                            tree_leaves(g), lr=lr, momentum=momentum)
+            _momentum_step_(tree_leaves(train), tree_leaves(vel), g, lr=lr,
+                            momentum=momentum)
             return train, vel
 
         return step
@@ -715,7 +742,10 @@ def make_group_update(runner: BlockRunner, blocks, *, lr: float,
             train = tree_map(torch.clone, anchor)
             vel = tree_map(torch.zeros_like, train)
             step = make_step(lo, hi, j, anchor, params)
-            data = (torch.stack(zs, 1), batches) if prefix_cache else batches
+            # the buffers on the batch axis (a dict z, whisper's
+            # {"enc", "dec"}, stacked leaf by leaf)
+            data = ((tree_map(lambda *z: torch.stack(z, 1), *zs), batches)
+                    if prefix_cache else batches)
             train, vel = run_local_steps(step, (train, vel), data,
                                          local_steps)
             del vel, anchor

@@ -59,19 +59,19 @@ def fedavg_group_update(cfg, lr: float, momentum: float, local_steps: int):
     """The group counterpart of :func:`fedavg_local`'s loop over stacked
     ``(clients, ...)`` parameters (updated in place) and ``(clients,
     batches, ...)`` data: each step takes every client's gradient in one
-    ``vmap(grad(loss))`` call, then the momentum update on the stacked
-    leaves."""
+    backward pass (:func:`blockwise.stacked_grads`), then the momentum
+    update on the stacked leaves."""
     apply = image_model(cfg).apply
 
     def loss(p, b):
         return _ce(apply(p, cfg, b["images"]), b["labels"])
 
-    grads = torch.func.vmap(torch.func.grad(loss))
+    grads = blockwise.stacked_grads(loss, in_dims=(0, 0))
 
     def step(carry, batch):
         p, v = carry
         blockwise._momentum_step_(tree_leaves(p), tree_leaves(v),
-                                  tree_leaves(grads(p, batch)), lr=lr,
+                                  grads(p, batch), lr=lr,
                                   momentum=momentum)
         return p, v
 

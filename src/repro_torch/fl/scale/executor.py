@@ -21,9 +21,10 @@ lane bits depends on the backend's choice of algorithm for the group
 count (the tests hold them on the CPU, ``chip_smoke.py`` on the card,
 and say which held).  Strategies without the shardable hooks — and
 groups that are too small / unstackable / ``None``-keyed — take the
-vectorized scheduler's fallback chain.  On an LM runner the group update
-raises the vectorized path's ``NotImplementedError`` (ROADMAP item 12):
-a stacked group never quietly runs sequentially.
+vectorized scheduler's fallback chain.  An LM runner's chunk runs the
+same group update, each kernel launched once a chunk (the vmap rules
+of ``kernels/ops.py``); a stacked group never quietly runs
+sequentially.
 
 **Fused aggregation** (``aggregate="mesh"``): for masked depth-wise
 strategies the round can fuse aggregation into the dispatch — each

@@ -17,10 +17,11 @@ image protocol, the LM runner when ``model_cfg`` is a ``ModelConfig``) and
 ``runner`` (any BlockRunner), optional ``mkd_fns=(logits_fn,
 task_loss_fn)`` for surplus clients, ``masked_aggregation=True`` for the
 beyond-paper per-leaf reweighting and ``prox_mu`` for FedProx.  The
-batched hooks let the vectorized scheduler stack the clients that share
-a decomposition (image runners only: an LM runner raises there).  The
-wire hooks delta-code the uplink against the broadcast state.  The
-reference's shardable and async hooks are not ported.
+batched hooks let the vectorized and sharded schedulers stack the
+clients that share a decomposition, on every runner (the LM families'
+kernels launch once a group); on an LM context FeDepth, the masked
+variant and m-FeDepth group every client, since no LM client runs MKD.
+The wire hooks delta-code the uplink against the broadcast state.
 """
 from __future__ import annotations
 
@@ -117,7 +118,8 @@ class FedepthStrategy:
     # ---------------------------------------------- batched capability
     def client_group_key(self, ctx, client_id):
         """Clients sharing a decomposition run the same depth-wise
-        computation and stack; MKD surplus clients keep the sequential
+        computation and stack; MKD surplus clients (M > 1 with an MKD
+        implementation: never on an LM context) keep the sequential
         path."""
         M = 1 if ctx.surplus is None else int(ctx.surplus[client_id])
         if M > 1 and self._mkd_available(ctx):
@@ -128,8 +130,8 @@ class FedepthStrategy:
     def client_update_batched(self, ctx, state, client_ids,
                               batches_per_client):
         """One stacked update for the whole group (partial-training prefix
-        skips and m-FeDepth's aux heads ride along: both live in the
-        shared decomposition and the parameter tree).  Raises for an LM
+        skips and m-FeDepth's aux heads or ``aux_norms`` ride along: both
+        live in the shared decomposition and the parameter tree), on any
         runner (:func:`blockwise.make_group_update`)."""
         update = self.group_update_fn(ctx, client_ids)
         group = len(batches_per_client)

@@ -52,6 +52,13 @@
 // (done once per slice instead of by each warp) nor other slice or ring
 // depths changed its time there.
 //
+// Groups.  The stacked (vmapped) path trains one head per client.  With
+// `groups` G > 1 the N rows are G runs of N/G, and run g multiplies its
+// own head, the g-th (D, V) matrix (or (V, D) table) of a (G, ...) stack:
+// grid axis z is the group and moves every pointer by its run (rows, head,
+// labels, partials), so a row tile never straddles two groups.  G = 1 is
+// the one-head kernel, instruction for instruction.
+//
 // Tied heads.  A model that ties its head to the embedding passes
 // lm_head = embed.T, a (D, V) view of the row-major (V, D) table.  The
 // `head_is_vd` flag reads that table in place (a column tile of the head is
@@ -208,6 +215,15 @@ ce_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
                   int D, int V, int nvt) {
   extern __shared__ __align__(16) float smem[];
   constexpr int STAGE = stage_floats<kVD>();
+
+  // group blockIdx.z: its N rows, its head, its labels and partials
+  h += (size_t)blockIdx.z * N * D;
+  w += (size_t)blockIdx.z * D * V;
+  labels += (size_t)blockIdx.z * N;
+  const size_t pofs = (size_t)blockIdx.z * N * nvt;
+  pm += pofs;
+  pl += pofs;
+  pg += pofs;
 
   const int row0 = blockIdx.x * BM;
   const int vt = blockIdx.y;
@@ -446,33 +462,38 @@ cudaError_t launch_partial(dim3 grid, cudaStream_t s, const float* h,
 // (nvt = ceil(V/128), see ce_num_vocab_tiles); `nll` holds N floats.
 // `head_is_vd` = 0: w is the (D, V) row-major head; 1: w is a (V, D)
 // row-major table and the head is its transpose (tied embeddings).
-// Launches on `stream`, does not synchronise, returns the launch's error.
+// `groups` G divides N: rows [g*N/G, (g+1)*N/G) take the g-th of G heads
+// stored back to back in w.  Launches on `stream`, does not synchronise,
+// returns the launch's error.
 extern "C" int ce_num_vocab_tiles(int V) { return (V + BN - 1) / BN; }
 
 extern "C" int ce_fwd(const float* h, const float* w, const int* labels,
                       float* partials, float* nll, int N, int D, int V,
-                      int head_is_vd, void* stream) {
-  if (N < 1 || D < 1 || V < 1) return (int)cudaErrorInvalidValue;
+                      int head_is_vd, int groups, void* stream) {
+  if (N < 1 || D < 1 || V < 1 || groups < 1 || groups > 65535 ||
+      N % groups)
+    return (int)cudaErrorInvalidValue;
   const int nvt = (V + BN - 1) / BN;
   if (nvt > 65535) return (int)cudaErrorInvalidValue;
+  const int Ng = N / groups;   // rows of one group
   float* pm = partials;
   float* pl = pm + (size_t)N * nvt;
   float* pg = pl + (size_t)N * nvt;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((N + BM - 1) / BM, nvt);
+  dim3 grid((Ng + BM - 1) / BM, nvt, groups);
   const bool aligned = ((uintptr_t)h % 16 == 0) && ((uintptr_t)w % 16 == 0);
   const bool vec = aligned && D % 4 == 0 && (head_is_vd || V % 4 == 0);
   cudaError_t err;
   if (head_is_vd)
     err = vec ? launch_partial<true, true>(grid, s, h, w, labels, pm, pl, pg,
-                                           N, D, V, nvt)
+                                           Ng, D, V, nvt)
               : launch_partial<true, false>(grid, s, h, w, labels, pm, pl,
-                                            pg, N, D, V, nvt);
+                                            pg, Ng, D, V, nvt);
   else
     err = vec ? launch_partial<false, true>(grid, s, h, w, labels, pm, pl,
-                                            pg, N, D, V, nvt)
+                                            pg, Ng, D, V, nvt)
               : launch_partial<false, false>(grid, s, h, w, labels, pm, pl,
-                                             pg, N, D, V, nvt);
+                                             pg, Ng, D, V, nvt);
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   const int blocks = (int)(((size_t)N * 32 + threads - 1) / threads);

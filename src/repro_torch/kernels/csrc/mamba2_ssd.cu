@@ -43,6 +43,12 @@
 // update and the shuffles, and one row pair per thread trades shared-memory
 // traffic against warps to hide that chain.
 
+//
+// Groups.  The stacked (vmapped) path trains one A and one D per client.
+// With `groups` G > 1, A and D are (G, H) and batch row b reads group
+// b / (B/G)'s entries; B_t, C_t, x and the state are per batch row
+// anyway.  G = 1 reads A[h] and D[h] as before.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,8 +124,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) ssd_scan_kernel(
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ Dskip,
     const float* __restrict__ s0, float* __restrict__ y,
-    float* __restrict__ sT, int T, int H, int P, int N, Geometry geo,
-    int vec_bc) {
+    float* __restrict__ sT, int T, int H, int P, int N, int rows_per_group,
+    Geometry geo, int vec_bc) {
   extern __shared__ __align__(16) float smem[];
   constexpr int np = CPT * TPR;
   const int rp = geo.rp, rpp = geo.rpp, tc = geo.tc;
@@ -149,8 +155,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) ssd_scan_kernel(
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
     if (group_ok && lr0 + i < rp && p0 + lr0 + i < P) rows_ok |= 1 << i;
-  const float a = A[h];
-  const float dskip = Dskip[h];
+  const int gh = b / rows_per_group * H + h;   // this row's group, head h
+  const float a = A[gh];
+  const float dskip = Dskip[gh];
   const int c0 = 4 * r;          // this thread's columns: c0..c0+3 and
   const int c1 = 4 * TPR + c0;   // c1..c1+3
 
@@ -318,10 +325,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) ssd_scan_kernel(
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  All tensors fp32, contiguous:
-// x (B,T,H,P), dt (B,T,H), A (H), Bm and Cm (B,T,N), D (H), s0 and sT
-// (B,H,P,N), y (B,T,H,P).  ssd_supported says whether (P, N) fits the
-// block (1 if so): N up to 256, any P.  ssd_fwd launches on `stream`, does
-// not synchronise, and returns cudaGetLastError().
+// x (B,T,H,P), dt (B,T,H), A and D (groups,H), Bm and Cm (B,T,N), s0 and
+// sT (B,H,P,N), y (B,T,H,P); `groups` divides B.  ssd_supported says
+// whether (P, N) fits the block (1 if so): N up to 256, any P.  ssd_fwd
+// launches on `stream`, does not synchronise, and returns
+// cudaGetLastError().
 extern "C" int ssd_supported(int P, int N) {
   if (P < 1 || N < 1) return 0;
   const Geometry g = geometry(P, N);
@@ -331,8 +339,9 @@ extern "C" int ssd_supported(int P, int N) {
 extern "C" int ssd_fwd(const float* x, const float* dt, const float* A,
                        const float* Bm, const float* Cm, const float* D,
                        const float* s0, float* y, float* sT, int B, int T,
-                       int H, int P, int N, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || !ssd_supported(P, N))
+                       int H, int P, int N, int groups, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || groups < 1 || B % groups ||
+      !ssd_supported(P, N))
     return (int)cudaErrorInvalidValue;
   const Geometry g = geometry(P, N);
   const int vec_bc = N % 4 == 0 && (uintptr_t)Bm % 16 == 0 &&
@@ -353,6 +362,6 @@ extern "C" int ssd_fwd(const float* x, const float* dt, const float* A,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(unsigned)blocks, g.threads, g.smem, (cudaStream_t)stream>>>(
-      x, dt, A, Bm, Cm, D, s0, y, sT, T, H, P, N, g, vec_bc);
+      x, dt, A, Bm, Cm, D, s0, y, sT, T, H, P, N, B / groups, g, vec_bc);
   return (int)cudaGetLastError();
 }

@@ -55,6 +55,11 @@
 // 2 or 4 unrolled steps and 16-step chunks were all slower on an H100
 // (PERF.md, PR 14).
 
+//
+// Groups.  The stacked (vmapped) path trains one u per client.  With
+// `groups` G > 1, u is (G, H, D) and batch row b reads group b / (B/G)'s
+// u_h; G = 1 reads u_h as before.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -131,7 +136,7 @@ __global__ void __launch_bounds__(max_threads(GP), 1) wkv6_scan_kernel(
     const float* __restrict__ v, const float* __restrict__ w,
     const float* __restrict__ u, const float* __restrict__ s0,
     float* __restrict__ y, float* __restrict__ sT, int T, int H, int D,
-    Geometry geo, int vec) {
+    int rows_per_group, Geometry geo, int vec) {
   extern __shared__ __align__(16) float smem[];
   constexpr int DR = GP * RPT;
   const int dc = geo.dc, tc = geo.tc, buf = geo.buf;
@@ -169,7 +174,8 @@ __global__ void __launch_bounds__(max_threads(GP), 1) wkv6_scan_kernel(
     float* vs = smem + (s >= tc ? buf : 0) + 3 * tc * DR;
     vs[(s % tc) * dc + D + i % (dc - D)] = 0.f;
   }
-  for (int d = tid; d < DR; d += blockDim.x) us[d] = d < D ? u[h * D + d] : 0.f;
+  const float* uh = u + ((size_t)(b / rows_per_group) * H + h) * D;
+  for (int d = tid; d < DR; d += blockDim.x) us[d] = d < D ? uh[d] : 0.f;
 
   auto stage = [&](int kb, int t0) {
     const int steps = min(tc, T - t0);
@@ -361,10 +367,10 @@ __global__ void __launch_bounds__(max_threads(GP), 1) wkv6_scan_kernel(
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  All tensors fp32, contiguous:
-// r, k, v, w and y (B,T,H,D), u (H,D), s0 and sT (B,H,D,D).  wkv6_supported
-// says whether D fits the block (1 if so): 1 <= D <= 128.  wkv6_fwd
-// launches on `stream`, does not synchronise, and returns
-// cudaGetLastError().
+// r, k, v, w and y (B,T,H,D), u (groups,H,D), s0 and sT (B,H,D,D);
+// `groups` divides B.  wkv6_supported says whether D fits the block (1 if
+// so): 1 <= D <= 128.  wkv6_fwd launches on `stream`, does not
+// synchronise, and returns cudaGetLastError().
 extern "C" int wkv6_supported(int D) {
   if (D < 1 || D > MAX_GP * RPT) return 0;
   return geometry(D).smem <= SMEM_BUDGET;
@@ -373,8 +379,9 @@ extern "C" int wkv6_supported(int D) {
 extern "C" int wkv6_fwd(const float* r, const float* k, const float* v,
                         const float* w, const float* u, const float* s0,
                         float* y, float* sT, int B, int T, int H, int D,
-                        void* stream) {
-  if (B < 1 || T < 1 || H < 1 || !wkv6_supported(D))
+                        int groups, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || groups < 1 || B % groups ||
+      !wkv6_supported(D))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -397,6 +404,6 @@ extern "C" int wkv6_fwd(const float* r, const float* k, const float* v,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(unsigned)blocks, g.threads, g.smem, (cudaStream_t)stream>>>(
-      r, k, v, w, u, s0, y, sT, T, H, D, g, vec);
+      r, k, v, w, u, s0, y, sT, T, H, D, B / groups, g, vec);
   return (int)cudaGetLastError();
 }

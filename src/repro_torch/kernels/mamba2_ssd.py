@@ -4,7 +4,9 @@ Replaces ``repro.kernels.mamba2_ssd.mamba2_scan`` (a Pallas TPU kernel).
 On a CUDA tensor :func:`mamba2_scan` launches the kernel (or raises); on a
 CPU tensor it runs the plain version (:func:`repro_torch.kernels.ref.
 mamba2_scan`, re-exported here as ``plain``).  The kernel note in the
-source says what bounds it and how.
+source says what bounds it and how.  A ``(G, H)`` ``A`` and ``D`` are one
+pair per group of B/G batch rows, all G in one launch (the stacked path's
+clients, ``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.kernels.ref import mamba2_scan as plain
 def _lib():
     lib = build.load("mamba2_ssd")
     if lib.ssd_fwd.argtypes is None:
-        lib.ssd_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        lib.ssd_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                                 + [ctypes.c_void_p])
         lib.ssd_fwd.restype = ctypes.c_int
         lib.ssd_supported.argtypes = [ctypes.c_int] * 2
@@ -30,10 +32,10 @@ def _lib():
 
 def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)
                 dt: torch.Tensor,    # (B, T, H)
-                A: torch.Tensor,     # (H,)
+                A: torch.Tensor,     # (H,) or (G, H)
                 Bm: torch.Tensor,    # (B, T, N)
                 Cm: torch.Tensor,    # (B, T, N)
-                D: torch.Tensor,     # (H,)
+                D: torch.Tensor,     # (H,) or (G, H)
                 initial_state: Optional[torch.Tensor] = None,  # (B,H,P,N)
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,T,H,P), final state (B,H,P,N)), both fp32.  Forward
@@ -47,10 +49,15 @@ def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)
                          f"{tuple(x.shape)}")
     B, T, H, P = x.shape
     N = Bm.shape[-1]
+    groups = A.shape[0] if A.dim() == 2 else 1
+    if B % groups:
+        raise ValueError(f"mamba2_scan: {B} batch rows do not split into "
+                         f"{groups} groups")
+    hs = (groups, H) if A.dim() == 2 else (H,)
     if initial_state is None:
         initial_state = x.new_zeros(B, H, P, N)
-    args = (("x", x, (B, T, H, P)), ("dt", dt, (B, T, H)), ("A", A, (H,)),
-            ("Bm", Bm, (B, T, N)), ("Cm", Cm, (B, T, N)), ("D", D, (H,)),
+    args = (("x", x, (B, T, H, P)), ("dt", dt, (B, T, H)), ("A", A, hs),
+            ("Bm", Bm, (B, T, N)), ("Cm", Cm, (B, T, N)), ("D", D, hs),
             ("initial_state", initial_state, (B, H, P, N)))
     build.check_args("mamba2_scan", x.device, args)
     y = torch.empty_like(x)
@@ -60,7 +67,7 @@ def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)
         raise ValueError(f"mamba2_scan: head_dim {P} with state {N} does not "
                          f"fit the kernel's block")
     err = lib.ssd_fwd(*(t.data_ptr() for _, t, _ in args), y.data_ptr(),
-                      state.data_ptr(), B, T, H, P, N,
+                      state.data_ptr(), B, T, H, P, N, groups,
                       torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "mamba2_scan")
     mamba2_scan.launches += 1

@@ -9,6 +9,22 @@ reference's chunking (``repro.kernels.ops._fa_bwd`` / ``_ce_bwd`` /
 ``_scan_chunk_bwd``): it saves only the inputs and none of the kernel's
 intermediates, so live memory is one chunk, not (Tq x Tk), (B*T x V) or a
 whole sequence of scan states.
+
+The Functions compose with ``torch.func`` (the stacked FeDepth path runs
+``vmap(grad(loss))`` over a client axis).  They take the
+``setup_context`` form; the backwards are ``torch.func.vjp`` of the plain
+chunk functions and explicit formulas, never ``requires_grad_`` and
+``torch.autograd.grad``, which a functorch transform refuses.  Each has a
+``vmap`` rule, as ``jax.vmap`` batches a ``pallas_call`` by adding a grid
+axis: one launch covers every client.  K2 folds the clients into its
+batch axis; K1, K3 and K4, whose parameters (the head, ``A`` / ``D``,
+``u``) differ per client, launch their grouped kernels: batch rows
+``[c·B, (c+1)·B)`` read client c's parameters.  An input that is not
+batched (``in_dims`` None) is shared by every client.  A rule calls the
+Function's own ``apply`` on the folded, grouped tensors, so a vmapped
+forward differentiated by plain autograd (the stacked path's step) runs
+the grouped backward: the scans' plain versions and the CE's formulas
+take the grouped parameters as they are.
 """
 from __future__ import annotations
 
@@ -31,16 +47,40 @@ SCAN_BWD_CHUNK = 4 * 128
 
 
 # --------------------------------------------------------------------------
+# vmap rules: the client axis
+# --------------------------------------------------------------------------
+def _clients_first(t: torch.Tensor, in_dim: Optional[int], C: int):
+    """``t`` with its client axis first: moved there, or ``t`` broadcast
+    to every client when it is not batched."""
+    if in_dim is None:
+        return t.expand(C, *t.shape)
+    return t.movedim(in_dim, 0)
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """(C, B, ...) -> (C·B, ...), contiguous: the kernels' batch axis."""
+    return t.reshape(-1, *t.shape[2:]).contiguous()
+
+
+def _unfold(t: torch.Tensor, C: int) -> torch.Tensor:
+    return t.reshape(C, -1, *t.shape[1:])
+
+
+# --------------------------------------------------------------------------
 # attention
 # --------------------------------------------------------------------------
 class FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, sliding_window, q_offset, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, sliding_window, q_offset, scale)
+    def forward(q, k, v, causal, sliding_window, q_offset, scale):
         return flash_attention(q, k, v, causal=causal,
                                sliding_window=sliding_window,
                                q_offset=q_offset, scale=scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, *opts = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = tuple(opts)
 
     @staticmethod
     def backward(ctx, g):
@@ -48,30 +88,43 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = attention_bwd(q, k, v, g, *ctx.opts)
         return dq, dk, dv, None, None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, sliding_window, q_offset,
+             scale):
+        """The clients fold into the batch axis: one launch, each batch
+        row attending over its own keys with one client's mask and
+        offset (a shared k / v, whisper's cross-attention over one
+        encoder output, is broadcast first)."""
+        C = info.batch_size
+        q, k, v = (_clients_first(t, d, C)
+                   for t, d in zip((q, k, v), in_dims[:3]))
+        out = FlashAttention.apply(_fold(q), _fold(k), _fold(v), causal,
+                                   sliding_window, q_offset, scale)
+        return _unfold(out, C), 0
+
 
 def attention_bwd(q, k, v, g, causal, sliding_window, q_offset, scale):
     """Recompute-based backward over q chunks: live memory is one chunk's
     (chunk x Tk) scores.  The last chunk is the ragged remainder (the
     reference slices a fixed-size window instead — see ROADMAP.md queue
-    3)."""
+    3).  Each chunk is ``torch.func.vjp`` of the plain attention, so the
+    backward runs under ``vmap`` too; the key and value gradients are
+    summed out of place (a shared k's zero buffer would not take a
+    batched gradient in place)."""
     Tq = q.shape[1]
     cq = min(ATTN_BWD_Q_CHUNK, Tq)
-    dqs = []
-    dk = torch.zeros_like(k)
-    dv = torch.zeros_like(v)
-    with torch.enable_grad():
-        kd = k.detach().requires_grad_()
-        vd = v.detach().requires_grad_()
-        for start in range(0, Tq, cq):
-            qs = q[:, start:start + cq].detach().requires_grad_()
-            out = ref.attention(qs, kd, vd, causal=causal,
-                                sliding_window=sliding_window,
-                                q_offset=q_offset + start, scale=scale)
-            dq_i, dk_i, dv_i = torch.autograd.grad(
-                out, (qs, kd, vd), g[:, start:start + cq])
-            dqs.append(dq_i)
-            dk += dk_i
-            dv += dv_i
+    dqs, dk, dv = [], None, None
+    for start in range(0, Tq, cq):
+        def chunk(qs, ks, vs, start=start):
+            return ref.attention(qs, ks, vs, causal=causal,
+                                 sliding_window=sliding_window,
+                                 q_offset=q_offset + start, scale=scale)
+
+        _, pull = torch.func.vjp(chunk, q[:, start:start + cq], k, v)
+        dq_i, dk_i, dv_i = pull(g[:, start:start + cq])
+        dqs.append(dq_i)
+        dk = dk_i if dk is None else dk + dk_i
+        dv = dv_i if dv is None else dv + dv_i
     return torch.cat(dqs, dim=1), dk, dv
 
 
@@ -87,40 +140,70 @@ def attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
 # --------------------------------------------------------------------------
 class ChunkedCrossEntropy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, hidden, lm_head, labels):
+    def forward(hidden, lm_head, labels, groups):
+        return chunked_cross_entropy(hidden, lm_head, labels, groups=groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        hidden, lm_head, labels, ctx.groups = inputs
         ctx.save_for_backward(hidden, lm_head, labels)
-        loss, n = chunked_cross_entropy(hidden, lm_head, labels)
-        ctx.mark_non_differentiable(n)
-        return loss, n
+        ctx.mark_non_differentiable(output[1])
 
     @staticmethod
     def backward(ctx, gloss, _gn):
         hidden, lm_head, labels = ctx.saved_tensors
-        dh, dw = cross_entropy_bwd(hidden, lm_head, labels, gloss)
-        return dh, dw, None
+        dh, dw = cross_entropy_bwd(hidden, lm_head, labels, gloss,
+                                   groups=ctx.groups)
+        return dh, dw, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, hidden, lm_head, labels, groups):
+        """One grouped launch: client c's rows multiply client c's head
+        (a tied head arrives as a (C, D, V) view of the (C, V, D) table,
+        read in place), and each client gets its own (mean over its valid
+        tokens, n_valid), as ``jax.vmap`` of the reference gives them.  A
+        head no client owns is shared: one (D, V) head, one group."""
+        C = info.batch_size
+        h = _clients_first(hidden, in_dims[0], C)
+        lbl = _clients_first(labels, in_dims[2], C)
+        head = (lm_head if in_dims[1] is None
+                else lm_head.movedim(in_dims[1], 0))
+        return ChunkedCrossEntropy.apply(_fold(h), head, _fold(lbl),
+                                         C), (0, 0)
 
 
-def cross_entropy_bwd(hidden, lm_head, labels, gloss, chunk: int = CE_CHUNK):
+def cross_entropy_bwd(hidden, lm_head, labels, gloss, chunk: int = CE_CHUNK,
+                      groups: Optional[int] = None):
     """Gradient of the chunked mean NLL, recomputed over token chunks:
     per chunk, d(loss)/d(logits) = valid * (softmax - onehot) * g / n, then
     one product each for d hidden and d lm_head.  Only one chunk's logits
-    are ever live."""
-    B, T, D = hidden.shape
-    h = hidden.reshape(B * T, D).float()
-    lbl = labels.reshape(B * T)
+    are ever live.  A (G, D, V) head, or ``groups`` G over a shared (D, V)
+    one, splits the rows into G groups with a mean each (``gloss`` (G,)):
+    the stacked path's clients, each chunk G x ``chunk`` rows.  Explicit
+    formulas, so that it also runs under ``vmap`` as it is."""
+    G = lm_head.shape[0] if lm_head.dim() == 3 else (groups or 1)
+    D = hidden.shape[-1]
+    h = hidden.reshape(G, -1, D).float()
+    lbl = labels.reshape(G, -1)
     w = lm_head.float()
     valid = lbl >= 0
-    coef = valid.float() * (gloss.float() / valid.sum().clamp(min=1))
-    dh = torch.empty_like(h)
-    dw = torch.zeros_like(w)
-    for s in range(0, B * T, chunk):
-        p = torch.softmax(h[s:s + chunk] @ w, dim=-1)
-        rows = torch.arange(p.shape[0], device=p.device)
-        p[rows, lbl[s:s + chunk].clamp(min=0).long()] -= 1.0
-        p *= coef[s:s + chunk, None]
-        dh[s:s + chunk] = p @ w.T
-        dw += h[s:s + chunk].T @ p
-    return (dh.reshape(hidden.shape).to(hidden.dtype),
+    coef = valid.float() * (gloss.float().reshape(-1, 1)
+                            / valid.sum(1, keepdim=True).clamp(min=1))
+    dh, dw = [], None
+    for s in range(0, h.shape[1], chunk):
+        hs = h[:, s:s + chunk]
+        p = torch.softmax(hs @ w, dim=-1)                  # (G, rows, V)
+        flat = p.view(-1, p.shape[-1])
+        flat[torch.arange(flat.shape[0], device=p.device),
+             lbl[:, s:s + chunk].reshape(-1).clamp(min=0).long()] -= 1.0
+        p *= coef[:, s:s + chunk, None]
+        dh.append(p @ w.transpose(-1, -2))
+        # a shared head's gradient sums every group's rows: one product;
+        # out of place, since under vmap it may be batched
+        dw_s = (hs.transpose(1, 2) @ p if w.dim() == 3
+                else hs.reshape(-1, D).T @ flat)
+        dw = dw_s if dw is None else dw + dw_s
+    return (torch.cat(dh, 1).reshape(hidden.shape).to(hidden.dtype),
             dw.to(lm_head.dtype))
 
 
@@ -128,7 +211,7 @@ def cross_entropy(hidden, lm_head, labels
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable (mean NLL over valid labels, n_valid) of
     ``hidden @ lm_head`` (see ``kernels/chunked_ce.py``)."""
-    return ChunkedCrossEntropy.apply(hidden, lm_head, labels)
+    return ChunkedCrossEntropy.apply(hidden, lm_head, labels, None)
 
 
 # --------------------------------------------------------------------------
@@ -142,7 +225,8 @@ def scan_chunk_bwd(scan_fn, seq_args, bcast_args, s0, gy, gs,
     ``scan_fn(*seq_chunks, *bcast, state) -> (y_chunk, state_out)`` must
     chain exactly across time chunks.  Pass 1 recomputes only the
     chunk-entry states; pass 2 walks the chunks in reverse, differentiating
-    one chunk at a time with the state cotangent chained backward, so live
+    one chunk at a time (``torch.func.vjp``, so that it runs under
+    ``vmap`` too) with the state cotangent chained backward, so live
     memory is one chunk's activations.  Returns (d seq_args, d bcast_args
     summed over chunks, d s0)."""
     T = seq_args[0].shape[1]
@@ -153,25 +237,21 @@ def scan_chunk_bwd(scan_fn, seq_args, bcast_args, s0, gy, gs,
             _, s = scan_fn(*(a[:, lo:hi] for a in seq_args), *bcast_args,
                            entry[-1])
             entry.append(s)
+    n_seq = len(seq_args)
     dseq = [[] for _ in seq_args]
-    dbcast = [torch.zeros_like(b) for b in bcast_args]
+    dbcast = [None] * len(bcast_args)
     ds = gs
-    with torch.enable_grad():
-        bcast = [b.detach().requires_grad_() for b in bcast_args]
-        for idx in reversed(range(len(bounds))):
-            lo, hi = bounds[idx]
-            seq = [a[:, lo:hi].detach().requires_grad_() for a in seq_args]
-            s_in = entry[idx].detach().requires_grad_()
-            y, s_out = scan_fn(*seq, *bcast, s_in)
-            grads = torch.autograd.grad((y, s_out), (*seq, *bcast, s_in),
-                                        (gy[:, lo:hi], ds),
-                                        allow_unused=True)
-            for i, g in enumerate(grads[:len(seq)]):
-                dseq[i].append(torch.zeros_like(seq[i]) if g is None else g)
-            for i, g in enumerate(grads[len(seq):-1]):
-                if g is not None:
-                    dbcast[i] += g
-            ds = grads[-1]
+    for idx in reversed(range(len(bounds))):
+        lo, hi = bounds[idx]
+        _, pull = torch.func.vjp(scan_fn, *(a[:, lo:hi] for a in seq_args),
+                                 *bcast_args, entry[idx])
+        grads = pull((gy[:, lo:hi], ds))
+        for i, g in enumerate(grads[:n_seq]):
+            dseq[i].append(g)
+        # out of place: a shared parameter's gradient is batched under vmap
+        for i, g in enumerate(grads[n_seq:-1]):
+            dbcast[i] = g if dbcast[i] is None else dbcast[i] + g
+        ds = grads[-1]
     return ([torch.cat(parts[::-1], dim=1) for parts in dseq], dbcast, ds)
 
 
@@ -179,11 +259,31 @@ def _mamba2_recompute(x, dt, Bm, Cm, A, D, s):
     return ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, D, s)
 
 
+def _scan_vmap(apply, info, seq, params, s0):
+    """The scans' vmap rule: the clients fold into the batch axis, and a
+    per-client parameter makes the launch grouped (one group a client);
+    a parameter no client owns stays shared.  ``seq`` and ``params`` are
+    (tensor, in_dim) pairs; a state that is not batched (``new_zeros``
+    in ``mamba2`` / ``rwkv6``) is broadcast.  ``apply`` is the Function's
+    own, so that autograd records the grouped call when the vmapped
+    forward is differentiated from outside."""
+    C = info.batch_size
+    shared = all(d is None for _, d in params)
+    seq = [_fold(_clients_first(t, d, C)) for t, d in seq]
+    params = [t if shared else _clients_first(t, d, C).contiguous()
+              for t, d in params]
+    y, state = apply(*seq, *params, _fold(_clients_first(*s0, C)))
+    return (_unfold(y, C), _unfold(state, C)), (0, 0)
+
+
 class Mamba2Scan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, D, s0):
-        ctx.save_for_backward(x, dt, A, Bm, Cm, D, s0)
+    def forward(x, dt, A, Bm, Cm, D, s0):
         return mamba2_scan(x, dt, A, Bm, Cm, D, s0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, gy, gs):
@@ -195,6 +295,15 @@ class Mamba2Scan(torch.autograd.Function):
             _mamba2_recompute, (x, dt, Bm, Cm), (A, D), s0, gy, gs,
             min(SCAN_BWD_CHUNK, x.shape[1]))
         return dx, ddt, dA, dB, dC, dD, ds
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, Bm, Cm, D, s0):
+        dx, ddt, dA, dB, dC, dD, ds = in_dims
+        return _scan_vmap(
+            lambda x, dt, Bm, Cm, A, D, s: Mamba2Scan.apply(x, dt, A, Bm, Cm,
+                                                            D, s),
+            info, ((x, dx), (dt, ddt), (Bm, dB), (Cm, dC)),
+            ((A, dA), (D, dD)), (s0, ds))
 
 
 def mamba2(x, dt, A, Bm, Cm, D, initial_state=None
@@ -211,9 +320,12 @@ def mamba2(x, dt, A, Bm, Cm, D, initial_state=None
 
 class Rwkv6Scan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, r, k, v, w, u, s0):
-        ctx.save_for_backward(r, k, v, w, u, s0)
+    def forward(r, k, v, w, u, s0):
         return rwkv6_scan(r, k, v, w, u, s0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, gy, gs):
@@ -225,6 +337,12 @@ class Rwkv6Scan(torch.autograd.Function):
             ref.rwkv6_scan, (r, k, v, w), (u,), s0, gy, gs,
             min(SCAN_BWD_CHUNK, r.shape[1]))
         return dr, dk, dv, dw, du, ds
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, w, u, s0):
+        return _scan_vmap(
+            Rwkv6Scan.apply, info, tuple(zip((r, k, v, w), in_dims[:4])),
+            ((u, in_dims[4]),), (s0, in_dims[5]))
 
 
 def rwkv6(r, k, v, w, u, initial_state=None

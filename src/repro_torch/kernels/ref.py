@@ -8,6 +8,12 @@ kernels to float64 on the card).  The kernel wrappers take these for
 tensors on the CPU (the tests), and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  Nothing on the main path calls them
 when a card is present.
+
+Grouped forms (the stacked path's client axis, ``kernels/ops.py``'s vmap
+rules): ``cross_entropy_rows`` takes a ``(G, D, V)`` head, the scans a
+``(G, H)`` ``A`` / ``D`` or a ``(G, H, D)`` ``u``.  Batch rows
+``[g·B/G, (g+1)·B/G)`` belong to group g and read its parameters; an
+ungrouped parameter is shared by every row.
 """
 from __future__ import annotations
 
@@ -16,6 +22,18 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+
+
+def _per_row(p: torch.Tensor, ungrouped_dim: int, B: int) -> torch.Tensor:
+    """A per-head parameter as one entry per batch row: ``p`` ungrouped
+    (``ungrouped_dim`` dims) gains a leading axis of 1, a grouped ``p``
+    (G, ...) repeats each group's entry for its B/G rows."""
+    if p.dim() == ungrouped_dim:
+        return p[None]
+    G = p.shape[0]
+    if B % G:
+        raise ValueError(f"{B} batch rows do not split into {G} groups")
+    return p.repeat_interleave(B // G, dim=0)
 
 
 def attention(q: torch.Tensor,          # (B, Tq, Hq, D)
@@ -70,13 +88,21 @@ def cross_entropy_logits(hidden: torch.Tensor,     # (B, T, D)
 
 
 def cross_entropy_rows(hidden: torch.Tensor,     # (B, T, D)
-                       lm_head: torch.Tensor,    # (D, V)
+                       lm_head: torch.Tensor,    # (D, V) or (G, D, V)
                        labels: torch.Tensor,     # (B, T); -100 = ignore
                        ) -> torch.Tensor:
     """Per-token NLL, shape (B*T,), 0 where the label is ignored.
-    Computes in fp32, or in float64 when hidden is float64."""
+    Computes in fp32, or in float64 when hidden is float64.  A (G, D, V)
+    head is one head per group of B/G batch rows."""
     ct = torch.float64 if hidden.dtype == torch.float64 else torch.float32
-    logits = hidden.to(ct) @ lm_head.to(ct)
+    if lm_head.dim() == 3:
+        G, B = lm_head.shape[0], hidden.shape[0]
+        if B % G:
+            raise ValueError(f"{B} batch rows do not split into {G} groups")
+        logits = torch.bmm(hidden.to(ct).reshape(G, -1, hidden.shape[-1]),
+                           lm_head.to(ct)).reshape(*hidden.shape[:2], -1)
+    else:
+        logits = hidden.to(ct) @ lm_head.to(ct)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels.clamp(min=0).long()[..., None])[..., 0]
@@ -85,10 +111,10 @@ def cross_entropy_rows(hidden: torch.Tensor,     # (B, T, D)
 
 def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)
                 dt: torch.Tensor,    # (B, T, H)  positive step sizes
-                A: torch.Tensor,     # (H,)       negative decay rates
+                A: torch.Tensor,     # (H,) or (G, H)  negative decay rates
                 Bm: torch.Tensor,    # (B, T, N)  shared across heads
                 Cm: torch.Tensor,    # (B, T, N)
-                D: torch.Tensor,     # (H,)       skip connection
+                D: torch.Tensor,     # (H,) or (G, H)  skip connection
                 initial_state: Optional[torch.Tensor] = None,  # (B,H,P,N)
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD, sequential over time: h_t = exp(A dt_t) h_{t-1} +
@@ -98,17 +124,18 @@ def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
     ct = torch.float64 if x.dtype == torch.float64 else torch.float32
-    xf, dtf, Bf, Cf, Af, Df = (t.to(ct) for t in (x, dt, Bm, Cm, A, D))
+    xf, dtf, Bf, Cf = (t.to(ct) for t in (x, dt, Bm, Cm))
+    Af, Df = (_per_row(t.to(ct), 1, Bsz) for t in (A, D))      # (1|B, H)
     h = (torch.zeros(Bsz, H, P, N, device=x.device, dtype=ct)
          if initial_state is None else initial_state.to(ct))
     ys = []
     for t in range(T):
-        da = torch.exp(Af[None, :] * dtf[:, t])                  # (B, H)
+        da = torch.exp(Af * dtf[:, t])                           # (B, H)
         dBx = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]
                * Bf[:, t, None, None, :])                        # (B,H,P,N)
         h = da[..., None, None] * h + dBx
         ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
-    y = torch.stack(ys, dim=1) + xf * Df[None, None, :, None]
+    y = torch.stack(ys, dim=1) + xf * Df[:, None, :, None]
     return y.to(x.dtype), h
 
 
@@ -146,7 +173,8 @@ def mamba2_scan_chunked(x, dt, A, Bm, Cm, D, initial_state=None, *,
     dtc = dtf.reshape(Bsz, nc, L, H)
     Bc = Bf.reshape(Bsz, nc, L, N)
     Cc = Cf.reshape(Bsz, nc, L, N)
-    cs = torch.cumsum(A.to(f64) * dtc, dim=2)                  # (B,nc,L,H)
+    cs = torch.cumsum(_per_row(A.to(f64), 1, Bsz)[:, None, None] * dtc,
+                      dim=2)                                   # (B,nc,L,H)
     rel = cs[:, :, :, None, :] - cs[:, :, None, :, :]         # (B,nc,t,i,H)
     causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     decay = torch.exp(torch.where(causal[:, :, None], rel, -torch.inf))
@@ -165,7 +193,7 @@ def mamba2_scan_chunked(x, dt, A, Bm, Cm, D, initial_state=None, *,
     y = y + torch.einsum("bctn,bchpn->bcthp", Cc, h_in) \
         * torch.exp(cs)[..., None]
     y = y.reshape(Bsz, nc * L, H, P)[:, :T] \
-        + xf[:, :T] * D.to(f64)[None, None, :, None]
+        + xf[:, :T] * _per_row(D.to(f64), 1, Bsz)[:, None, :, None]
     return y.to(x.dtype), h.float()
 
 
@@ -173,7 +201,7 @@ def rwkv6_scan(r: torch.Tensor,      # (B, T, H, D) receptance
                k: torch.Tensor,      # (B, T, H, D) key
                v: torch.Tensor,      # (B, T, H, D) value
                w: torch.Tensor,      # (B, T, H, D) decay logits
-               u: torch.Tensor,      # (H, D) bonus of the current token
+               u: torch.Tensor,      # (H, D) or (G, H, D) current-token bonus
                initial_state: Optional[torch.Tensor] = None,  # (B,H,D,D)
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV6, sequential over time: S_t = diag(d_t) S_{t-1} + k_tᵀ v_t,
@@ -184,7 +212,7 @@ def rwkv6_scan(r: torch.Tensor,      # (B, T, H, D) receptance
     ct = torch.float64 if r.dtype == torch.float64 else torch.float32
     rf, kf, vf = r.to(ct), k.to(ct), v.to(ct)
     decay = torch.exp(-torch.exp(w.to(ct)))
-    uf = u.to(ct)[None, :, :, None]
+    uf = _per_row(u.to(ct), 2, Bsz)[..., None]                  # (1|B,H,D,1)
     S = (torch.zeros(Bsz, H, D, D, device=r.device, dtype=ct)
          if initial_state is None else initial_state.to(ct))
     ys = []

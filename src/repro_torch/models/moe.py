@@ -47,6 +47,13 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device,
     return p
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) without its range check, which reads
+    the indices on the host and so cannot run under ``vmap`` (the stacked
+    FeDepth path); the indices come from a sort over n experts."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def router_topk(logits: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits (N, E) -> (top-k probabilities (N, k), renormalised; their
@@ -62,7 +69,7 @@ def router_topk(logits: torch.Tensor, k: int
     # Switch-style load balance: E * sum_e(frac_tokens_e * mean_prob_e),
     # the first choice decides the load
     E = logits.shape[-1]
-    frac = F.one_hot(topk_idx[:, 0], E).float().mean(0)
+    frac = _one_hot(topk_idx[:, 0], E).float().mean(0)
     aux = E * (frac * probs.mean(0)).sum()
     return topk_probs, topk_idx, aux
 
@@ -81,7 +88,7 @@ def forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     # each (token, choice)'s place in its expert's queue, in flat order
     flat_idx = topk_idx.reshape(-1)                             # (N*K,)
-    onehot = F.one_hot(flat_idx, E)                             # (N*K, E)
+    onehot = _one_hot(flat_idx, E)                              # (N*K, E)
     pos = onehot.cumsum(0).gather(1, flat_idx[:, None])[:, 0] - 1
     keep = pos < C
     slot = torch.where(keep, flat_idx * C + pos, torch.zeros_like(pos))

@@ -20,7 +20,11 @@ whose ReLU inputs take the same branch on both devices), and one round of
 each image method on the reduced config (atol 1e-4, rtol 1e-3), with no
 kernel launched.  So are the reduced ViT's loss and gradients (atol 1e-5,
 rtol 1e-4) and one stacked (vectorized) FeDepth group update of the
-reduced PreResNet and ViT (atol 1e-4, rtol 1e-3).  Serving: each
+reduced PreResNet and ViT (atol 1e-4, rtol 1e-3), and of reduced
+qwen2-7b, mamba2-370m, rwkv6-7b and whisper-small (the kernels' vmap
+rules: K1, K3 and K4 grouped, K2 folded); the grouped kernels against
+their grouped plain versions and, bitwise, against each group's own
+ungrouped launch.  Serving: each
 family's reduced prefill and 8 decode steps on the card against the CPU
 (K2 on the dense, vlm and hybrid prefills, K3 / K4 on every ssm and
 hybrid decode step; the MoE family's decode at a capacity of 1 an
@@ -55,7 +59,8 @@ from repro_torch.fl.engine import RoundEngine, SimConfig, build_context  # noqa:
 from repro_torch.fl.registry import get_strategy  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.chunked_ce import chunked_cross_entropy  # noqa: E402
+from repro_torch.kernels.chunked_ce import (chunked_cross_entropy,  # noqa: E402
+                                            cross_entropy_rows)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import mamba2_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
@@ -752,6 +757,97 @@ def test_group_update_on_the_card_matches_the_cpu(cuda, family):
     for a, b in zip(tree_leaves(out["cuda"]), tree_leaves(out["cpu"])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-370m", "rwkv6-7b",
+                                  "whisper-small"])
+def test_stacked_lm_group_update_on_the_card_matches_the_cpu(cuda, arch):
+    """One stacked FeDepth group update of a reduced LM (three clients,
+    two blocks, two batches; ``vmap(grad)`` through the kernels' vmap
+    rules: K1 grouped, K2 folded, K3 / K4 grouped) on the card equals
+    the same update on the CPU (the grouped plain versions), atol 1e-4 /
+    rtol 1e-3; the path's kernels launch."""
+    cfg = get_reduced_config(arch)
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    runner = blockwise.lm_runner(lm)
+    gen = torch.Generator().manual_seed(6)
+
+    def batch():
+        toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen)
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.is_encoder_decoder:
+            b["encoder_embeds"] = torch.randn(
+                2, cfg.max_source_positions, cfg.d_model, generator=gen)
+        return b
+
+    bpc = [[batch() for _ in range(2)] for _ in range(3)]
+    dec = Decomposition(((0, 1), (1, runner.n_units)), 0, 0)
+    before = [fn.launches for fn in KERNELS]
+    out = {dev: blockwise.client_update_batched(
+        runner, tree_map(lambda t: t.to(dev), params), dec,
+        tree_map(lambda t: t.to(dev), bpc), lr=0.05, momentum=0.9)
+        for dev in ("cpu", "cuda")}
+    launched = [fn.launches - n for fn, n in zip(KERNELS, before)]
+    assert launched[1] > 0 and any(launched[i] for i in (0, 2, 3))
+    for a, b in zip(tree_leaves(out["cuda"]), tree_leaves(out["cpu"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+def test_grouped_kernels_match_plain_and_their_groups(cuda, groups):
+    """K1 (a (G, D, V) head and a tied (G, V, D) table), K3 ((G, H) A, D)
+    and K4 ((G, H, D) u) in one grouped launch: within the kernels'
+    tolerances of the grouped plain versions, and each group's rows
+    bitwise its own ungrouped launch (groups=1: the (1, ...) parameter
+    launch is today's)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    G, Bg, T = groups, 2, 37
+    B = G * Bg
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    def rows(t, g):
+        return t[g * Bg:(g + 1) * Bg]
+
+    D, V = 203, 1001
+    h = rn(B, T, D)
+    labels = torch.randint(0, V, (B, T), device="cuda", generator=gen)
+    labels[:, ::5] = -100
+    for w in (rn(G, D, V) / D ** 0.5,
+              (rn(G, V, D) / D ** 0.5).transpose(1, 2)):
+        nll = cross_entropy_rows(h, w, labels)
+        ref_rows = ref.cross_entropy_rows(h, w, labels)
+        torch.testing.assert_close(nll, ref_rows, atol=1e-4, rtol=1e-5)
+        for g in range(G):
+            assert torch.equal(nll.reshape(G, -1)[g], cross_entropy_rows(
+                rows(h, g), w[g], rows(labels, g)))
+        means, n = chunked_cross_entropy(h, w, labels)
+        assert means.shape == n.shape == (G,)
+    H, P, N = 3, 40, 24
+    args = (rn(B, T, H, P), torch.nn.functional.softplus(rn(B, T, H)),
+            -torch.exp(rn(G, H)), rn(B, T, N), rn(B, T, N), rn(G, H),
+            rn(B, H, P, N))
+    outs, refs = mamba2_scan(*args), ref.mamba2_scan(*args)
+    _assert_scan_close(outs, refs, f"mamba2 groups {G}")
+    for g in range(G):
+        one = mamba2_scan(*(a[g] if i in (2, 5) else rows(a, g)
+                            for i, a in enumerate(args)))
+        for a, b in zip(outs, one):
+            assert torch.equal(rows(a, g), b)
+    Dh = 30
+    args = (rn(B, T, H, Dh), rn(B, T, H, Dh), rn(B, T, H, Dh),
+            rn(B, T, H, Dh) * 0.5 - 0.5, rn(G, H, Dh) * 0.1,
+            rn(B, H, Dh, Dh))
+    outs, refs = rwkv6_scan(*args), ref.rwkv6_scan(*args)
+    _assert_scan_close(outs, refs, f"rwkv6 groups {G}")
+    for g in range(G):
+        one = rwkv6_scan(*(a[g] if i == 4 else rows(a, g)
+                           for i, a in enumerate(args)))
+        for a, b in zip(outs, one):
+            assert torch.equal(rows(a, g), b)
 
 
 def test_whisper_on_the_card_matches_the_cpu(cuda):

@@ -23,6 +23,7 @@ from repro_torch.fl.engine import RoundEngine, SimConfig  # noqa: E402
 from repro_torch.fl.registry import get_strategy  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
 
+from repro_torch.tree import tree_leaves  # noqa: E402
 from torch_helpers import lm_engine_parity  # noqa: E402
 
 SIM = dict(rounds=2, participation=0.5, lr=0.05, momentum=0.9,
@@ -42,11 +43,11 @@ def test_two_rounds_match_reference_engine(arch):
     dict(history_sink="history.jsonl"), dict(history_sink=object())])
 def test_unported_engine_knobs_raise(knob, tmp_path):
     """The knobs of the scale and telemetry layers, once refused, are
-    ported; what raises now is what the reference raises too: the
-    sharded scheduler on an LM runner (its stacked group update waits
-    for ROADMAP item 12, as the vectorized one does) and a history sink
-    that is neither a sink nor a path.  A path sink is the engine's own,
-    and a capture turns telemetry on."""
+    ported: the sharded scheduler runs an LM runner's rounds (its
+    stacked group update, as the vectorized one does, launching each
+    kernel once a group), a path sink is the engine's own, and a capture
+    turns telemetry on.  What raises is what the reference raises too:
+    a history sink that is neither a sink nor a path."""
     cfg = get_reduced_config("qwen2-7b")
     ctx = build_lm_context(build_seq_data(4, vocab_size=cfg.vocab_size,
                                           device="cpu", **DATA),
@@ -58,8 +59,10 @@ def test_unported_engine_knobs_raise(knob, tmp_path):
         engine = RoundEngine(get_strategy("fedepth"), ctx,
                              scheduler=ShardedScheduler(min_group=1,
                                                         mesh=["cpu"]))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            engine.run()
+        state, history = engine.run()
+        assert history[-1].round == SIM["rounds"]
+        assert all(bool(torch.isfinite(t).all())
+                   for t in tree_leaves(state))
     elif "obs" in knob:
         assert RoundEngine(get_strategy("fedepth"), ctx,
                            **knob).obs is not None

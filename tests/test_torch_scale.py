@@ -55,7 +55,8 @@ from repro_torch.fl.data import build_federated  # noqa: E402
 from repro_torch.fl.engine import (RoundEngine, SimConfig,  # noqa: E402
                                    build_context)
 from repro_torch.fl.registry import get_strategy  # noqa: E402
-from repro_torch.fl.sampling import VectorizedScheduler  # noqa: E402
+from repro_torch.fl.sampling import (SequentialScheduler,  # noqa: E402
+                                     VectorizedScheduler)
 from repro_torch.fl.scale import (FOLD_LANES_EXACT,  # noqa: E402
                                   HashedDutyCycle, InMemoryStore,
                                   JsonlHistorySink, Population,
@@ -393,20 +394,43 @@ def test_run_fused_ineligible_draws_nothing():
 
 
 def test_sharded_on_lm_runner_raises_item_12():
+    """The sharded scheduler on an LM runner once raised (the stacked LM
+    path was missing); now it runs the strategy's group update per
+    chunk.  On one device with ``max_lanes=None`` the one chunk is the
+    vectorized dispatch: the round's state bitwise the vectorized
+    scheduler's.  Over two devices the chunks run the same function over
+    fewer lanes: within 1e-6.  Reduced qwen2-7b at 4 layers (K1 + K2), a
+    cohort of 4 sharing one multi-block decomposition."""
+    import dataclasses
     from repro_torch.configs import get_reduced_config
     from repro_torch.fl.seq import build_lm_context, build_seq_data
-    cfg = get_reduced_config("qwen2-7b")
-    data = build_seq_data(4, n_per_client=4, n_test=4,
-                          vocab_size=cfg.vocab_size, seq_len=8, seed=0,
-                          device="cpu")
-    ctx = build_lm_context(data, SimConfig(rounds=1, participation=0.5,
-                                           batch_size=2, seed=0), cfg,
-                           device="cpu")
-    engine = RoundEngine(get_strategy("fedepth"), ctx,
-                         scheduler=ShardedScheduler(min_group=1,
-                                                    mesh=["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine.run()
+    cfg = dataclasses.replace(get_reduced_config("qwen2-7b"), num_layers=4)
+
+    def run(scheduler):
+        data = build_seq_data(4, n_per_client=4, n_test=4,
+                              vocab_size=cfg.vocab_size, seq_len=8, seed=0,
+                              device="cpu")
+        ctx = build_lm_context(data, SimConfig(
+            rounds=1, participation=1.0, batch_size=2, scenario="fair",
+            seed=0), cfg, device="cpu")
+        # one group of 4: every client takes the deepest decomposition
+        ctx.decomps = [max(ctx.decomps, key=lambda d: len(d.blocks))] * 4
+        assert len(ctx.decomps[0].blocks) >= 2
+        state, history = RoundEngine(get_strategy("fedepth"), ctx,
+                                     scheduler=scheduler).run()
+        return state, history
+
+    vec, h_vec = run(VectorizedScheduler(min_group=2))
+    one, h_one = run(ShardedScheduler(min_group=2, mesh=["cpu"]))
+    two, h_two = run(ShardedScheduler(min_group=2, mesh=["cpu"] * 2))
+    assert [r.comm_bytes for r in h_one] == [r.comm_bytes for r in h_vec] \
+        == [r.comm_bytes for r in h_two]
+    for a, b, c in zip(tree_leaves(vec), tree_leaves(one), tree_leaves(two)):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(c.numpy(), a.numpy(), rtol=0, atol=1e-6)
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(vec), tree_leaves(run(SequentialScheduler())[0])))
+    assert moved <= 1e-4
 
 
 # --------------------------------------------------------------------------

@@ -4,14 +4,14 @@ learning target).
 
 Reduced mamba2 (its 2 layers) over ``build_seq_data(4, n_per_client=16,
 n_test=32, vocab_size=32, seq_len=12)``, 2 rounds at participation 0.5:
-DepthFL's fixed-depth prefix, m-FeDepth and FeDepth under the
+DepthFL's fixed-depth prefix, m-FeDepth, FeDepth under the vectorized
+scheduler (``RoundEngine(..., scheduler="vectorized")``: the cohort's
+groups stacked under ``vmap(grad)`` on both sides) and FeDepth under the
 event-driven ``AsyncEngine`` (async mode over ``profiles_for_ratios``)
 each run through the port and through the reference
 (``kernel_force="ref"``) from the same initial parameters: the same
 bytes, sim seconds and (async) event trace, accuracies within one test
-token, final parameters within atol 1e-4 / rtol 1e-3.  The vectorized
-row waits for vmap rules on the kernels (ROADMAP item 12;
-tests/test_torch_vectorized.py holds its refusal).
+token, final parameters within atol 1e-4 / rtol 1e-3.
 
 Then reduced mamba2 federated depth-wise learns: the mean of the last
 three evaluations is above 0.5 (the reference's threshold and seed;
@@ -45,15 +45,18 @@ SIM = dict(rounds=2, participation=0.5, lr=0.1, local_steps=1,
 
 def _engines(method, engine):
     """(port engine, reference engine) of one matrix row, fresh
-    contexts."""
+    contexts.  The vectorized row takes every client each round, so that
+    the three clients sharing a decomposition stack."""
+    sim = dict(SIM, participation=1.0) if engine == "vectorized" else SIM
     ctx = build_lm_context(build_seq_data(4, device="cpu", **DATA),
-                           SimConfig(**SIM), get_reduced_config(ARCH),
+                           SimConfig(**sim), get_reduced_config(ARCH),
                            device="cpu")
-    jctx = j_context(j_data(4, **DATA), JSim(**SIM), j_reduced(ARCH),
+    jctx = j_context(j_data(4, **DATA), JSim(**sim), j_reduced(ARCH),
                      kernel_force="ref")
-    if engine == "round":
-        return (RoundEngine(get_strategy(method), ctx),
-                JEngine(j_get_strategy(method), jctx))
+    if engine in ("round", "vectorized"):
+        kw = dict(scheduler="vectorized") if engine == "vectorized" else {}
+        return (RoundEngine(get_strategy(method), ctx, **kw),
+                JEngine(j_get_strategy(method), jctx, **kw))
     kw = dict(mode="async", concurrency=2, buffer_size=1)
     return (T.AsyncEngine(get_strategy(method), ctx, system=T.SystemModel(
                 T.profiles_for_ratios(ctx.ratios)), **kw),
@@ -62,7 +65,8 @@ def _engines(method, engine):
 
 
 @pytest.mark.parametrize("method,engine", [
-    ("depthfl", "round"), ("m-fedepth", "round"), ("fedepth", "async")])
+    ("depthfl", "round"), ("m-fedepth", "round"), ("fedepth", "vectorized"),
+    ("fedepth", "async")])
 def test_engine_matrix_matches_reference(method, engine):
     port, ref = _engines(method, engine)
     strat = port.strategy

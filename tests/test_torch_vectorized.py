@@ -249,23 +249,63 @@ def test_client_update_batched_float64_matches_to_rounding(family):
                                        atol=1e-12)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen3-moe-235b-a22b"])
-def test_lm_runner_raises_under_vectorized(arch):
-    """An LM runner's kernels (K1-K4) have no vmap rules yet: the stacked
-    path raises instead of falling back quietly, for every LM family
-    (the MoE runner among them)."""
+def _lm_batch(cfg, gen):
+    """One LM batch of 2 x 8 tokens (whisper's with its frames)."""
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encoder_decoder:
+        batch["encoder_embeds"] = torch.randn(
+            2, cfg.max_source_positions, cfg.d_model, generator=gen)
+    return batch
+
+
+LM_ARCHS = ("qwen2-7b", "qwen2-vl-2b", "qwen3-moe-235b-a22b",
+            "llama4-maverick-400b-a17b", "mamba2-370m", "rwkv6-7b",
+            "zamba2-1.2b", "whisper-small")
+
+
+@pytest.mark.parametrize("arch,head", [
+    pytest.param(a, "skip", id=a) for a in LM_ARCHS] + [
+    pytest.param(a, "aux", id=f"{a}-aux") for a in LM_ARCHS
+    if a != "whisper-small"])   # whisper's runner takes the skip head only
+def test_lm_runner_raises_under_vectorized(arch, head):
+    """The stacked path once raised on every LM runner; now each family's
+    K1–K4 run under ``vmap(grad)`` through their vmap rules.  Three
+    clients of a reduced LM as one stacked update equal three
+    ``client_update`` calls within the vectorized tolerance: dense,
+    vlm, moe (qwen3-moe; llama4's interleaved dense + MoE unit), ssm
+    (mamba2's tied head, rwkv6), hybrid (zamba2) and whisper at runner
+    level (z the ``{"enc", "dec"}`` pair), under FeDepth's skip head and
+    m-FeDepth's ``aux_norms``; two blocks wherever the model has two
+    units; the given tree is not written, and the update moves it."""
+    from repro_torch.models import build
     cfg = get_reduced_config(arch)
-    data = build_seq_data(4, n_per_client=4, n_test=4,
-                          vocab_size=cfg.vocab_size, seq_len=8, seed=0,
-                          device="cpu")
-    sim = SimConfig(rounds=1, participation=0.5, batch_size=2, seed=0)
-    ctx = build_lm_context(data, sim, cfg, device="cpu")
-    strategy = get_strategy("fedepth")
-    engine = RoundEngine(strategy, ctx,
-                         scheduler=VectorizedScheduler(min_group=1))
-    assert strategy.client_group_key(ctx, 0) is not None
-    with pytest.raises(NotImplementedError, match="vmap rules"):
-        engine.run()
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    if head == "aux":
+        params["aux_norms"] = 1.0 + 0.1 * torch.randn(
+            lm.num_depth_units, cfg.d_model,
+            generator=torch.Generator().manual_seed(1))
+    runner = blockwise.lm_runner(lm, head=head)
+    n = runner.n_units
+    dec = Decomposition(((0, 1), (1, n)) if n > 1 else ((0, 1),), 0, 0)
+    gen = torch.Generator().manual_seed(0)
+    bpc = [[_lm_batch(cfg, gen) for _ in range(2)] for _ in range(3)]
+    snapshot = [t.clone() for t in tree_leaves(params)]
+    kw = dict(lr=0.05, momentum=0.9, local_steps=1)
+    seq = [blockwise.client_update(runner, params, dec, b, **kw)
+           for b in bpc]
+    vec = blockwise.client_update_batched(runner, params, dec, bpc, **kw)
+    assert len(vec) == 3
+    for s, v in zip(seq, vec):
+        for a, b in zip(tree_leaves(s), tree_leaves(v)):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=RTOL,
+                                       atol=ATOL)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                 snapshot))
+    moved = max(float((a - b).abs().max()) for v in vec
+                for a, b in zip(tree_leaves(v), tree_leaves(params)))
+    assert moved > 1e-3
 
 
 # -------------------------------------------------- grouping and fallbacks
