@@ -28,7 +28,9 @@ Phases (each fails loudly; any failure exits non-zero):
    shapes beside the slice's: the serving prefills, whisper-small's
    encoder (non-causal, 1500 frames) and cross-attention (Tq 256 and 1
    against 1500), zamba2-1.2b's shared block, scan and head,
-   whisper-small's tied head, and K3 / K4 at a decode step (T = 1).
+   whisper-small's tied head, K3 / K4 at a decode step (T = 1), and
+   yi-6b's training shapes (K2 at B 4 x T 64, B 4 / B 2 x T 256; K1 at
+   its untied head over 256, 1024 and 512 rows).
    The grouped launches of the stacked path (K1 with one head per
    client, tied heads read in place; K3 with ``A`` and ``D``, K4 with
    ``u`` per client) at every grouped shape phase 10 launches and on
@@ -161,6 +163,22 @@ Phases (each fails loudly; any failure exits non-zero):
    share of both logged.  Then one FeDepth round of mamba2-370m over 6
    clients (two groups of 2 stack) under the vectorized scheduler and
    under ``ShardedScheduler(mesh=["cuda:0"])``, deterministic: bitwise.
+11. the training launch path (``repro_torch.launch.train`` /
+   ``.steps``, after phase 10): (a) the train CLI in standard mode on
+   yi-6b at published widths and all 32 layers, its defaults (batch 4 x
+   64, 3 steps; SGD momentum, the global-norm clip), profiled; (b)
+   ``make_train_step`` on yi-6b cut to 4 layers at batch 4 x 256 from one
+   set of parameters, ``accum_steps=2`` within rtol 1e-4 / atol 1e-6 of
+   ``accum_steps=1``, and the reduced config's step on the card against
+   the CPU; (c) the CLI's FeDepth mode on mamba2-370m at all 48 layers,
+   batch 4 x 256, a budget of two blocks, two passes of the schedule; (d)
+   the buffered-z block step on (c)'s later block bitwise the unbuffered
+   one, deterministic; (e) ``make_multi_decode_step(lm, 8)`` at batch 4
+   bitwise 8 ``decode_step`` calls with argmax feedback (K3 at T = 1).
+   Each step's peak is held to its reckoning (parameters, momentum,
+   gradients, ``lm_memory``'s fp32 activations) and RECKON_LIMIT; every
+   loss finite; step seconds, tokens/s and 6 N tokens / s against fp32's
+   67 TFLOP/s logged, and the CLI run's idle share.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (every timed shape beside the first under ``heads``, each with
@@ -784,6 +802,15 @@ def phase_kernels():
         dict(attn, name="qwen2-7b stacked, 3 clients folded B12 T256 Hq28 "
              "Hkv4 D128 causal", B=12, seed=50, timed=True,
              path="qwen2-7b"),
+        # phase 11: yi-6b's training launch path, the train CLI at its
+        # defaults (4 x 64) and the train step at 4 x 256, whole and in
+        # microbatches of 2
+        dict(attn, name="yi-6b train CLI B4 T64 Hq32 Hkv4 D128 causal",
+             Tq=64, Tk=64, Hq=32, Hkv=4, seed=70, timed=True, path="yi-6b"),
+        dict(attn, name="yi-6b train step B4 T256 Hq32 Hkv4 D128 causal",
+             Hq=32, Hkv=4, seed=71, timed=True, path="yi-6b"),
+        dict(attn, name="yi-6b train microbatch B2 T256 Hq32 Hkv4 D128 "
+             "causal", B=2, Hq=32, Hkv=4, seed=72, timed=True, path="yi-6b"),
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
@@ -844,6 +871,14 @@ def phase_kernels():
         dict(name="rwkv6-7b stacked heads, 4 groups N4096 D4096 V65536",
              N=4096, D=4096, V=65536, ignore_every=7, groups=4, seed=58,
              path="rwkv6-7b"),
+        # phase 11: yi-6b's untied head in the train CLI (4 x 64 tokens),
+        # the train step (4 x 256) and its microbatches of 2 x 256
+        dict(name="yi-6b head N256 D4096 V64000 (train CLI)", N=256,
+             D=4096, V=64000, ignore_every=7, seed=73, path="yi-6b"),
+        dict(name="yi-6b head N1024 D4096 V64000 (train step)", N=1024,
+             D=4096, V=64000, ignore_every=7, seed=74, path="yi-6b"),
+        dict(name="yi-6b head N512 D4096 V64000 (train microbatch)",
+             N=512, D=4096, V=64000, ignore_every=7, seed=75, path="yi-6b"),
     ]
     for case in ce_cases:    # every path's head is timed
         if case.get("path"):
@@ -3748,6 +3783,485 @@ def phase_stacked(smi: str) -> dict:
     return by_run
 
 
+# --------------------------------------------------------------- phase 11
+TRAIN_ARCH = "yi-6b"         # (a) the CLI's standard mode, (b) the step
+TRAIN_STEPS = 3              # (a), at the CLI's defaults: batch 4 x 64
+TRAIN_CUT = 4                # (b): yi-6b cut to 4 layers, batch 4 x 256
+FEDEPTH_ARCH = "mamba2-370m"  # (c) the CLI's FeDepth mode, (d), (e)
+# lm_memory at batch 4 x 256 splits mamba2-370m's 48 layers into 2 blocks
+# at this budget: [0, 27), [27, 48)
+FEDEPTH_BUDGET_MB = 4000
+DECODE_TOKENS = 8            # (e): make_multi_decode_step(lm, 8)
+
+
+def _saved_bytes(fn, own) -> int:
+    """Bytes of the distinct storages autograd saves for the backward
+    while ``fn()`` runs (the ``saved_tensors_hooks`` pack hook sees every
+    saved tensor, a custom Function's too), beside the tensors of ``own``
+    (the parameters)."""
+    import torch
+    skip = {t.untyped_storage().data_ptr() for t in own}
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            seen[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn()
+    return sum(seen.values())
+
+
+def _eager_acts(cfg, B: int, T: int, device) -> tuple:
+    """The activations eager autograd holds for the backward of one depth
+    unit and of the head, at batch B x T and the config's widths: counted
+    from the saved tensors' shapes (:func:`_saved_bytes`) on a one-unit
+    model of those widths.  ``lm_memory`` prices fewer (a subset of what
+    eager autograd saves); the reckonings log both."""
+    import torch
+    from repro_torch.core import blockwise
+    from repro_torch.models import build
+    from repro_torch.tree import tree_leaves
+    one = dataclasses.replace(cfg, num_layers=cfg.moe_every)
+    lm = build(one)
+    params = lm.init(0, device=device)
+    runner = blockwise.lm_runner(lm)
+    gen = torch.Generator(device=device).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device=device)
+    batch = {"tokens": toks, "labels": toks}
+    leaves = tree_leaves(params)
+    with torch.no_grad():
+        z = runner.embed(params, batch)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        unit = _saved_bytes(lambda: runner.apply_units(params, z, 0, 1),
+                            leaves)
+        head = _saved_bytes(lambda: runner.head_loss(params, z, batch, 0),
+                            leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    del params, z
+    return unit, head
+
+
+def _reckon_train(cfg, B: int, T: int, device, accum: int = 1) -> tuple:
+    """A standard step's reckoned peak over what it holds at entry: its
+    gradients (the fp32 parameters once more) and the activations one
+    microbatch holds for the backward (:func:`_eager_acts`, every unit
+    and the head), the CE backward's chunk (:func:`_ce_chunk`), plus,
+    with accumulation, one leaf's fresh gradient before it is summed
+    into ``.grad`` (the largest leaf, the (V, D) table); and the whole
+    run's: the parameters and momentum besides.  Returns (step, run,
+    how)."""
+    from repro_torch.core.memory_model import lm_memory
+    unit, head = _eager_acts(cfg, B // accum, T, device)
+    n_units = cfg.num_layers // cfg.moe_every
+    acts = n_units * unit + head
+    mem = lm_memory(cfg, B // accum, T, act_bytes=4)
+    priced = (sum(u.activations for u in mem.units) + mem.embed.activations
+              + mem.head.activations)
+    params = 4 * cfg.param_count()
+    leaf = 4 * cfg.vocab_size * cfg.d_model if accum > 1 else 0
+    ce = _ce_chunk(cfg, B // accum * T)
+    step = params + acts + leaf + ce
+    return step, 2 * params + step, (
+        f"{params / GIB:.2f} GiB parameters, as many of momentum and of "
+        f"gradients, {acts / GIB:.2f} GiB activations at {B // accum} x {T} "
+        f"({n_units} x {unit / 2**20:.1f} MiB a unit + {head / 2**20:.1f} "
+        f"MiB the head, counted; lm_memory prices {priced / GIB:.2f} GiB in "
+        f"fp32), {ce / GIB:.2f} GiB the CE backward's chunk"
+        + (f", {leaf / GIB:.2f} GiB a leaf's fresh gradient" if leaf else ""))
+
+
+def _ce_chunk(cfg, rows: int) -> int:
+    """The CE backward's live chunk (``kernels.ops.cross_entropy_bwd``):
+    the logits of up to ``CE_CHUNK`` rows and their softmax, fp32."""
+    from repro_torch.kernels.ops import CE_CHUNK
+    return 2 * 4 * min(rows, CE_CHUNK) * cfg.vocab_size
+
+
+def _reckon_block(cfg, mem, lo: int, hi: int, acts: tuple,
+                  rows: int) -> tuple:
+    """A FeDepth block step's reckoned peak over what it holds at entry
+    (the parameters and every block's momentum so far): the block's
+    gradients (its split: the units, the tied head and the final norm),
+    the activations its units and the head hold for the backward
+    (``acts``: :func:`_eager_acts`) and the CE backward's chunk over
+    ``rows`` tokens.  Returns (bytes, how)."""
+    unit, head = acts
+    split = 4 * (cfg.vocab_size * cfg.d_model + cfg.d_model) + sum(
+        mem.units[k].params for k in range(lo, hi))
+    held = (hi - lo) * unit + head
+    priced = (sum(mem.units[k].activations for k in range(lo, hi))
+              + mem.head.activations)
+    ce = _ce_chunk(cfg, rows)
+    return split + held + ce, (
+        f"{split / GIB:.2f} GiB gradients + {held / GIB:.2f} GiB activations "
+        f"({hi - lo} x {unit / 2**20:.1f} MiB + {head / 2**20:.1f} MiB, "
+        f"counted; lm_memory prices {priced / GIB:.2f} GiB in fp32) + "
+        f"{ce / GIB:.2f} GiB the CE backward's chunk")
+
+
+def _step_peaks(kind: str):
+    """Wrap ``launch.steps.make_train_step`` (``kind`` "train") or
+    ``make_fedepth_block_step`` ("block") so that each step records the
+    bytes allocated at its entry and its own peak
+    (``max_memory_allocated``, reset at entry); returns the records and a
+    function that undoes the wrap."""
+    import torch
+    from repro_torch.launch import steps
+    name = ("make_train_step" if kind == "train"
+            else "make_fedepth_block_step")
+    inner, records = getattr(steps, name), []
+
+    def measured(step):
+        def run(*args):
+            torch.cuda.synchronize()
+            entry = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = step(*args)
+            torch.cuda.synchronize()
+            records.append((entry, torch.cuda.max_memory_allocated()))
+            return out
+        return run
+
+    def make(*args, **kw):
+        out = inner(*args, **kw)
+        if kind == "train":
+            return measured(out)
+        return measured(out[0]), out[1]
+
+    setattr(steps, name, make)
+    return records, lambda: setattr(steps, name, inner)
+
+
+def _rates(name: str, secs: list, tokens: int, flops: float, smi: str,
+           first: int = 0) -> None:
+    """Log each step's seconds, tokens/s and model FLOPs over the seconds
+    as a share of fp32's peak (the port computes in fp32, TF32 off)."""
+    for s, t in enumerate(secs, first):
+        log(f"    {name} step {s}: {t:.4f} s, {tokens / t:.1f} tokens/s, "
+            f"{flops / t / 1e12:.2f} TFLOP/s = {flops / t / PEAK_FP32[1]:.4f}"
+            f" of {PEAK_FP32[0]} ({smi})")
+
+
+def _device_arg(device: str) -> list:
+    """The CLI's default device is the GPU; a CPU rehearsal names its own."""
+    return [] if device == "cuda" else ["--device", device]
+
+
+def _check_losses(name: str, losses) -> None:
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+
+
+def _held(name: str, peak: int, reckoned: int) -> None:
+    """A step's measured peak within its reckoning and RECKON_LIMIT."""
+    _held_to_reckoning(name, peak, reckoned)
+    if peak > reckoned:
+        raise AssertionError(f"{name}: peak {peak / GIB:.2f} GiB over its "
+                             f"reckoning {reckoned / GIB:.2f} GiB")
+
+
+def phase_train_cli(smi: str, device="cuda") -> dict:
+    """(a) ``python -m repro_torch.launch.train --arch yi-6b --steps 3``:
+    the CLI's standard mode at published widths and all 32 layers, its
+    defaults (batch 4 x 64, lr 3e-3, clip 1.0), profiled: every loss
+    finite, each step's peak within its reckoning and RECKON_LIMIT, K1 and
+    K2 launched."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+    cfg = get_config(TRAIN_ARCH)
+    B, T = 4, 64
+    step_r, run_r, how = _reckon_train(cfg, B, T, device)
+    log(f"train CLI (a): {cfg.name}, {cfg.num_layers} layers (all), "
+        f"{cfg.param_count() / 1e9:.3f} B params, batch {B} x {T}, "
+        f"{TRAIN_STEPS} steps; reckoned peak {run_r / GIB:.2f} GiB ({how}; "
+        f"limit {RECKON_LIMIT / GIB:.0f} GiB); "
+        f"{torch.cuda.memory_allocated() / GIB:.2f} GiB allocated before")
+    if run_r > RECKON_LIMIT:
+        raise AssertionError(f"{cfg.name}: reckoned {run_r / GIB:.2f} GiB")
+    records, undo = _step_peaks("train")
+    try:
+        res, launches, shapes, wall, busy = _profiled_count(
+            lambda: train_main(["--arch", TRAIN_ARCH, "--steps",
+                                str(TRAIN_STEPS)] + _device_arg(device)))
+    finally:
+        undo()
+    log(f"  the CLI: {wall:.2f} s in all, losses "
+        f"{[round(x, 4) for x in res.losses]}, launches {launches}, idle "
+        f"share {1 - busy / wall:.4f} ({smi})")
+    _check_losses("train CLI", res.losses)
+    _rates("standard", res.seconds, B * T,
+           6.0 * cfg.param_count() * B * T, smi)
+    for s, (entry, peak) in enumerate(records):
+        _held(f"  step {s} (entry {entry / GIB:.2f} GiB)", peak,
+              entry + step_r)
+    missing = [k for k in K1_K2 if launches[k] <= 0]
+    if missing or len(records) != TRAIN_STEPS:
+        raise AssertionError(f"train CLI: kernels {missing} not launched "
+                             f"({launches}), {len(records)} steps measured")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {(TRAIN_ARCH, "train CLI"): (launches, shapes)}
+
+
+def _reduced_step_card_vs_cpu(arch: str, device="cuda") -> None:
+    """The reduced config's train step (accumulation 2, clip active) on
+    the card against the CPU, from the same parameters and batch: loss
+    and gnorm within LOSS_RTOL, parameters and momentum within rtol 1e-4
+    / atol 1e-6.  Not counted."""
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.tree import tree_map
+    cfg = get_reduced_config(arch)
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    batch = next(TokenPipeline(cfg.vocab_size, 256, 4, seed=1).batches())
+    step = make_train_step(lm, accum_steps=2)
+    out = {}
+    for dev in ("cpu", device):
+        out[dev] = step(tree_map(lambda t: t.to(dev, copy=True), params),
+                        tree_map(lambda t: torch.zeros_like(t, device=dev),
+                                 params),
+                        {k: torch.from_numpy(a).to(dev)
+                         for k, a in batch.items()})
+    (pc, vc, mc), (pg, vg, mg) = out["cpu"], out[device]
+    rel = max(abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+              for k in ("loss", "gnorm"))
+    worst = _states_within(tree_map(torch.Tensor.cpu, (pg, vg)), (pc, vc),
+                           rtol=1e-4, atol=1e-6)
+    ok = rel <= LOSS_RTOL
+    log(f"  {arch} reduced, one step (accumulation 2): loss "
+        f"{float(mg['loss']):.6f} (card) vs {float(mc['loss']):.6f} (cpu), "
+        f"gnorm {float(mc['gnorm']):.4f}, rel err {rel:.3e} (tol "
+        f"{LOSS_RTOL:g}); parameters and momentum max abs diff {worst:.3e} "
+        f"(rtol 1e-4 / atol 1e-6) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch}: card and CPU disagree ({rel})")
+
+
+def phase_train_step(smi: str, device="cuda") -> dict:
+    """(b) ``make_train_step`` on yi-6b at published widths cut to 4
+    layers, batch 4 x 256, from one set of parameters (clip 1.0, lr 3e-3):
+    ``accum_steps=2`` within rtol 1e-4 / atol 1e-6 of ``accum_steps=1``
+    (parameters and momentum), each step's peak within its reckoning; and
+    the reduced config's step on the card against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import build
+    from repro_torch.tree import tree_leaves, tree_map
+    _reduced_step_card_vs_cpu(TRAIN_ARCH, device)
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_CUT)
+    B, T = 4, 256
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    batch = {k: torch.from_numpy(a).to(device) for k, a in next(TokenPipeline(
+        cfg.vocab_size, T, B, seed=0).batches()).items()}
+    log(f"train step (b): {cfg.name}, {TRAIN_CUT} layers (cut from "
+        f"{full.num_layers}), {cfg.param_count() / 1e9:.3f} B params, batch "
+        f"{B} x {T}")
+    by_run, out = {}, {}
+    for accum in (1, 2):
+        step_r, _, how = _reckon_train(cfg, B, T, device, accum)
+        p = tree_map(torch.clone, params)
+        v = tree_map(torch.zeros_like, params)
+        records, undo = _step_peaks("train")
+        try:
+            step = steps.make_train_step(lm, lr=3e-3, accum_steps=accum)
+            (p, v, m), launches, secs, shapes = _counted(
+                lambda: step(p, v, batch))
+        finally:
+            undo()
+        (entry, peak), = records
+        log(f"  accum_steps={accum}: loss {float(m['loss']):.5f}, gnorm "
+            f"{float(m['gnorm']):.4f}, {secs:.4f} s, launches {launches}")
+        _rates(f"accum {accum}", [secs], B * T,
+               6.0 * cfg.param_count() * B * T, smi)
+        _held(f"  accum_steps={accum} step (reckoned: {how}; entry "
+              f"{entry / GIB:.2f} GiB)", peak, entry + step_r)
+        if not float(m["gnorm"]) > 1.0:
+            raise AssertionError(f"gnorm {float(m['gnorm'])}: the clip is "
+                                 f"not active")
+        missing = [k for k in K1_K2 if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"train step: {missing} not launched")
+        out[accum] = (p, v)
+        by_run[TRAIN_ARCH, f"train step, {TRAIN_CUT} layers, accum "
+               f"{accum}"] = (launches, shapes)
+    worst = _states_within(out[2], out[1], rtol=1e-4, atol=1e-6)
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(out[1][0]), tree_leaves(params)))
+    log(f"  accum_steps=2 vs 1: parameters and momentum max abs diff "
+        f"{worst:.3e} (rtol 1e-4 / atol 1e-6) ok; parameters moved "
+        f"{moved:.3e}")
+    if not moved > 0:
+        raise AssertionError("train step: the parameters did not move")
+    del out, params, p, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_run
+
+
+def phase_train_fedepth(smi: str, device="cuda") -> dict:
+    """(c) ``python -m repro_torch.launch.train --arch mamba2-370m
+    --fedepth``: all 48 layers at published widths, batch 4 x 256, a
+    budget that ``lm_memory`` splits into 2 blocks, two passes of the
+    schedule (each block's momentum created at its first step): finite
+    losses, each block step's peak within its reckoning, K1 (tied) and K3
+    launched.  (d) The buffered-z block step on the later block equals
+    the unbuffered one bitwise, under deterministic algorithms.  (e)
+    ``make_multi_decode_step(lm, 8)`` at batch 4 equals 8 ``decode_step``
+    calls with argmax feedback bitwise: logits and cache."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import decomposition
+    from repro_torch.core.memory_model import lm_memory
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import build, init_cache
+    from repro_torch.tree import tree_map
+    cfg = get_config(FEDEPTH_ARCH)
+    B, T = 4, 256
+    needed = ("chunked_cross_entropy", "mamba2_scan")
+    mem = lm_memory(cfg, B, T)
+    blocks = decomposition.decompose(mem, int(FEDEPTH_BUDGET_MB * 2**20)
+                                     ).blocks
+    n_steps = 2 * len(blocks)
+    mem4 = lm_memory(cfg, B, T, act_bytes=4)
+    acts = _eager_acts(cfg, B, T, device)
+    log(f"train CLI (c): {cfg.name} --fedepth, {cfg.num_layers} layers "
+        f"(all), batch {B} x {T}, --budget-mb {FEDEPTH_BUDGET_MB}: blocks "
+        f"{blocks}, {n_steps} steps (two passes)")
+    if len(blocks) < 2:
+        raise AssertionError(f"{FEDEPTH_BUDGET_MB} MB gives {blocks}")
+    records, undo = _step_peaks("block")
+    try:
+        res, launches, secs, shapes = _counted(lambda: train_main([
+            "--arch", FEDEPTH_ARCH, "--fedepth", "--budget-mb",
+            str(FEDEPTH_BUDGET_MB), "--batch", str(B), "--seq", str(T),
+            "--steps", str(n_steps)] + _device_arg(device)))
+    finally:
+        undo()
+    log(f"  the CLI: {secs:.2f} s in all, losses "
+        f"{[round(x, 4) for x in res.losses]}, launches {launches}")
+    for line in res.schedule.splitlines():
+        log(f"    {line}")
+    _check_losses("FeDepth CLI", res.losses)
+    if res.blocks != blocks or len(records) != n_steps:
+        raise AssertionError(f"FeDepth CLI: blocks {res.blocks}, "
+                             f"{len(records)} steps measured")
+    for s, (entry, peak) in enumerate(records):
+        j = s % len(blocks)
+        lo, hi = blocks[j]
+        split = sum(mem.units[k].params for k in range(lo, hi)) \
+            + 4 * cfg.vocab_size * cfg.d_model
+        flops = (2.0 * sum(mem.units[k].params for k in range(lo)) / 4
+                 + 6.0 * split / 4) * B * T
+        _rates(f"block[{lo}:{hi}]", [res.seconds[s]], B * T, flops, smi,
+               first=s)
+        reckoned, how = _reckon_block(cfg, mem4, lo, hi, acts, B * T)
+        _held(f"  step {s} block[{lo}:{hi}] (entry {entry / GIB:.2f} GiB; "
+              f"reckoned: {how})", peak, entry + reckoned)
+    missing = [k for k in needed if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"FeDepth CLI: {missing} not launched")
+    by_run = {(FEDEPTH_ARCH, "train CLI --fedepth"): (launches, shapes)}
+
+    # (d) the buffered-z step on the later block, from the CLI's result
+    lm = build(cfg)
+    params = res.params
+    lo, hi = blocks[-1]
+    batch = {k: torch.from_numpy(a).to(device) for k, a in next(TokenPipeline(
+        cfg.vocab_size, T, B, seed=1).batches()).items()}
+    outs = []
+    with deterministic():
+        for buffered in (False, True):
+            fn, runner = steps.make_fedepth_block_step(
+                lm, lo, hi, lr=3e-3, buffered_z=buffered)
+            p = tree_map(torch.clone, params)
+            v = tree_map(torch.zeros_like, runner.split(p, lo, hi))
+            b = batch
+            if buffered:
+                with torch.no_grad():
+                    z = runner.apply_units(p, runner.embed(p, batch), 0, lo)
+                b = {"z_in": z, "labels": batch["labels"]}
+            (p, v, m), n, t, sh = _counted(lambda: fn(p, v, b))
+            outs.append((p, v, m))
+            by_run[FEDEPTH_ARCH, f"block step [{lo}, {hi})"
+                   + (", buffered z" if buffered else "")] = (n, sh)
+            log(f"  (d) block[{lo}:{hi}] {'buffered z' if buffered else 'prefix recomputed'}: "
+                f"loss {float(m['loss']):.6f}, {t:.4f} s, launches {n}")
+    diff = _first_difference((outs[0][0], outs[0][1]),
+                             (outs[1][0], outs[1][1]))
+    same_loss = torch.equal(outs[0][2]["loss"], outs[1][2]["loss"])
+    log(f"  (d) buffered vs unbuffered: parameters and momentum bitwise "
+        f"{diff is None}, loss bitwise {same_loss} "
+        f"{'ok' if diff is None and same_loss else 'FAIL'}")
+    if diff is not None or not same_loss:
+        raise AssertionError(f"buffered z: first difference {diff}, loss "
+                             f"equal {same_loss}")
+    del outs, p, v
+
+    # (e) N greedy tokens in one call against N decode steps
+    gen = torch.Generator(device=device).manual_seed(2)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device=device)
+    cache0 = init_cache(cfg, B, DECODE_TOKENS, device=device)
+    multi = steps.make_multi_decode_step(lm, DECODE_TOKENS)
+    torch.cuda.synchronize()
+    (logits, cache), n, t, sh = _counted(lambda: multi(params, {
+        "cache": tree_map(torch.clone, cache0), "cache_index": 0,
+        "tokens": tok}))
+    by_run[FEDEPTH_ARCH, f"multi-decode {DECODE_TOKENS} tokens"] = (n, sh)
+    loop, c, cur = [], tree_map(torch.clone, cache0), tok
+    for i in range(DECODE_TOKENS):
+        lg, c = lm.decode_step(params, cur, c, i)
+        cur = lg[:, -1].argmax(-1)[:, None]
+        loop.append(lg)
+    same = torch.equal(logits, torch.stack(loop)) and \
+        _first_difference(cache, c) is None
+    log(f"  (e) make_multi_decode_step(lm, {DECODE_TOKENS}) at batch {B}: "
+        f"{t * 1e3 / DECODE_TOKENS:.2f} ms a token, "
+        f"{B * DECODE_TOKENS / t:.1f} tokens/s, launches {n}; logits and "
+        f"cache bitwise {DECODE_TOKENS} decode steps {same} "
+        f"{'ok' if same else 'FAIL'} ({smi})")
+    if not same or n["mamba2_scan"] <= 0:
+        raise AssertionError(f"multi-decode: bitwise {same}, launches {n}")
+    del res, params, logits, cache, loop, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_run
+
+
+def phase_train(smi: str, device="cuda") -> dict:
+    """Phase 11: the training launch path."""
+    t0 = time.perf_counter()
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    by_run = phase_train_cli(smi, device)
+    by_run.update(phase_train_step(smi, device))
+    by_run.update(phase_train_fedepth(smi, device))
+    log(f"phase 11 (the training launch path): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return by_run
+
+
 PATHS = (
     # (arch, layers, kernels that must launch on the path, method)
     ("qwen2-7b", 4, K1_K2, "fedepth"),
@@ -3851,6 +4365,7 @@ def main() -> int:
         for stage, run in runs.items():
             by_run[arch, f"serve {stage}"] = run
     by_run.update(phase_stacked(smi))
+    by_run.update(phase_train(smi))
     kernels = [dict(name=name, **KERNEL_META[name], **numbers[name])
                for name in KERNEL_META]
     attribute_launches(kernels, checked, by_run)

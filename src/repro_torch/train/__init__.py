@@ -1,2 +1,3 @@
-"""Training substrate (port of ``repro.train``, in part): the
-checkpoint format."""
+"""Training substrate (port of ``repro.train``): optimizers, schedules,
+checkpointing."""
+from repro_torch.train.optim import adamw, cosine, sgd, wsd  # noqa: F401

@@ -38,7 +38,9 @@ on the card against the CPU (the same trace, atol 1e-4 / rtol 1e-3), and
 a fault's damage of a mamba2 payload on the card equal to the CPU's,
 bitwise, in fp32 and bf16.  Scale and observability: a ``SpillStore``
 entry of CUDA tensors spilled and reloaded on the card in its dtype,
-bitwise; the memory auditor measuring a step on the card.
+bitwise; the memory auditor measuring a step on the card.  The launch
+path: one ``launch.steps`` train step (clip active, accumulation 1 and 2)
+of reduced yi-6b and mamba2-370m on the card against the CPU.
 """
 import dataclasses
 
@@ -1030,3 +1032,38 @@ def test_audit_measures_a_block_step_on_the_card(cuda):
     assert cell["temp_bytes"] >= 256 * 256 * 4
     assert cell["argument_bytes"] == (256 * 256 + 32) * 4
     assert aud.erased_peak >= 1 << 22
+
+
+@pytest.mark.parametrize("arch,accum", [("yi-6b", 1), ("yi-6b", 2),
+                                        ("mamba2-370m", 2)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, accum):
+    """One ``launch.steps.make_train_step`` (clip active, lr 0.05) of a
+    reduced LM on the card equals the same step on the CPU: loss and
+    gnorm relative 1e-4, parameters and momentum atol 1e-6 / rtol 1e-4;
+    both updated in place; K1 (and K2 or K3) launch."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_reduced_config(arch)
+    lm = build(cfg)
+    params = lm.init(0, device="cpu")
+    vel = tree_map(torch.zeros_like, params)
+    np_batch = next(TokenPipeline(cfg.vocab_size, 32, 4, seed=3).batches())
+    step = make_train_step(lm, lr=0.05, accum_steps=accum)
+    before = [fn.launches for fn in KERNELS]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        v = tree_map(lambda t: t.to(dev, copy=True), vel)
+        b = {k: torch.from_numpy(a).to(dev) for k, a in np_batch.items()}
+        out[dev] = step(p, v, b)
+        assert tree_leaves(out[dev][0])[0] is tree_leaves(p)[0]
+    launched = [fn.launches - n for fn, n in zip(KERNELS, before)]
+    assert launched[1] > 0 and any(launched[i] for i in (0, 2))
+    (pc, vc, mc), (pg, vg, mg) = out["cpu"], out["cuda"]
+    assert float(mc["gnorm"]) > 1.0
+    for key in ("loss", "gnorm"):
+        np.testing.assert_allclose(float(mg[key]), float(mc[key]),
+                                   rtol=1e-4, err_msg=key)
+    for a, b in zip(tree_leaves((pg, vg)), tree_leaves((pc, vc))):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-6,
+                                   rtol=1e-4)

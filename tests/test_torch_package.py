@@ -25,6 +25,8 @@ from repro_torch.launch.mesh import make_data_mesh  # noqa: E402
 from repro_torch.fl.seq import build_lm_context, build_seq_data  # noqa: E402
 from repro_torch.configs.vit_t16 import reduced as vit_reduced  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.launch.train import stub_inputs  # noqa: E402
 from repro_torch.models import build, init_cache, resnet, vit  # noqa: E402
 from repro_torch.testing.convert import (params_from_reference,  # noqa: E402
                                          params_to_reference)
@@ -144,6 +146,9 @@ SYSTIME_FAULTS_PATH = ("fl.systime", "fl.systime.clock",
 SCALE_OBS_PATH = ("fl.scale.history", "fl.scale.population",
                   "fl.scale.executor", "launch.mesh", "obs", "obs.trace",
                   "obs.metrics", "obs.export", "obs.audit", "obs.dynamics")
+# the training launch path
+TRAIN_LAUNCH_PATH = ("data", "data.tokens", "train.optim", "launch.steps",
+                     "launch.train", "kernels.flash_chunked")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -156,17 +161,18 @@ def test_port_imports_neither_jax_nor_reference():
     names = out.stdout.split()
     assert len(names) >= 28
     missing = [m for m in IMAGE_PATH + SERVING_PATH + MOE_COMM_PATH
-               + SYSTIME_FAULTS_PATH + SCALE_OBS_PATH
+               + SYSTIME_FAULTS_PATH + SCALE_OBS_PATH + TRAIN_LAUNCH_PATH
                if f"repro_torch.{m}" not in names]
     assert not missing, missing
 
 
 def test_runtime_modules_do_not_import_testing():
-    """The training, wire, system-time, fault and serving modules stand
-    without ``repro_torch.testing`` (the parity helpers): the wire format
-    is the program's, not the tests'."""
+    """The training, wire, system-time, fault, serving and launch modules
+    stand without ``repro_torch.testing`` (the parity helpers): the wire
+    format is the program's, not the tests'."""
     code = ("import sys, repro_torch.fl.engine, repro_torch.fl.comm, "
             "repro_torch.fl.registry, repro_torch.launch.serve, "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
             "repro_torch.fl.systime, repro_torch.fl.faults, "
             "repro_torch.train.checkpoint, repro_torch.fl.scale, "
             "repro_torch.obs, repro_torch.obs.export; "
@@ -251,6 +257,19 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_main(args)
     assert serve_main(args + ["--device", "cpu"]).tokens.device.type == "cpu"
+    # the train CLI, which moves TokenPipeline's numpy batches and the
+    # stubbed frontends' inputs to its device
+    args = ["--arch", "qwen2-vl-2b", "--reduced", "--steps", "1",
+            "--batch", "2", "--seq", "4"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(args + ["--fedepth", "--budget-mb", "8"])
+    res = train_main(args + ["--device", "cpu"])
+    assert all(t.device.type == "cpu" for t in tree_leaves(res.params))
+    vcfg2 = get_reduced_config("qwen2-vl-2b")
+    assert all(t.device.type == "cpu" for t in stub_inputs(
+        vcfg2, 2, 4, 0, resolve_device("cpu")).values())
 
 
 def test_cuda_device_turns_tf32_off(monkeypatch):
