@@ -120,7 +120,8 @@ Phases (each fails loudly; any failure exits non-zero):
    10, buffer 5, 4 server versions) twice (the control), checkpointed
    every 2 versions (aux blobs through pickle), killed and resumed:
    state, history rows and trace bitwise the uninterrupted run's; (b)
-   mamba2-370m at published widths and all 48 layers, FeDepth over 6
+   mamba2-370m at published widths cut to SYSTIME_LAYERS (24) of its
+   48 layers, FeDepth over 6
    clients with phase 4's data: an async run (concurrency 3, buffer 2, 2
    server versions) whose peak must stay within its reckoning
    (``_reckon_async``), then 3 sync rounds under the reference tests'
@@ -143,9 +144,9 @@ Phases (each fails loudly; any failure exits non-zero):
    async run of phase 8 (a) under ``qsgd_int8`` / delta with a
    ``SpillStore(capacity=2)`` on the engine and the channel, and
    checkpointed, killed and resumed: bitwise the run without a store;
-   (c) mamba2-370m at 48 layers, 2 FeDepth rounds with telemetry off and
-   full (``obs=``, a JSONL ``history_sink``): bitwise, K1 and K3 launch;
-   the Chrome trace through ``tools/trace_report.py``, the Prometheus
+   (c) mamba2-370m at SYSTIME_LAYERS, 2 FeDepth rounds with telemetry
+   off and full (``obs=``, a JSONL ``history_sink``): bitwise, K1 and K3
+   launch; the Chrome trace through ``tools/trace_report.py``, the Prometheus
    snapshot, span counts, and the memory auditor's cells (every trained
    block measured; PreResNet-20's, from one audited round, within the
    reference's envelope 0.25–4).  PreResNet-20 runs launch no kernel;
@@ -179,6 +180,23 @@ Phases (each fails loudly; any failure exits non-zero):
    gradients, ``lm_memory``'s fp32 activations) and RECKON_LIMIT; every
    loss finite; step seconds, tokens/s and 6 N tokens / s against fp32's
    67 TFLOP/s logged, and the CLI run's idle share.
+12. the sharded layer (after phase 11), over a one-rank ``nccl`` group
+   (a ``HashStore``, no port): (a) phase 11 (b)'s step on yi-6b at 4
+   layers with its parameters laid out by ``launch.sharding.param_specs``
+   as DTensors on a ("data", "model") mesh of (1, 1), fsdp off and on,
+   under deterministic algorithms: K1 and K2 through ``local_map`` on
+   every call, and parameters, momentum, loss and gnorm bitwise the
+   unsharded step's (step seconds and peaks logged); (a') K1's
+   vocab-shard form (what each rank runs for a head split over the
+   vocab) on two halves of the yi-6b head, each half's log-sum-exp and
+   gold logit and the combined NLL within CE_RTOL of the plain version;
+   (b) ``moe_ep.forward_ep`` on one qwen3-moe layer at published widths,
+   4 x 256 tokens at capacity factor 8, forward and backward against
+   ``moe.forward`` within EP_TOL (each after an untimed first call;
+   seconds, peaks and the bytes through ``all_to_all`` logged); (c)
+   ``launch.dryrun.dryrun_one("yi-6b", "train_4k")`` on the 16 x 16 fake
+   mesh, costed at its accumulation of 8, its roofline terms at the
+   H100's constants.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (every timed shape beside the first under ``heads``, each with
@@ -203,12 +221,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.kernels.timing import time_ms  # noqa: E402
+from repro_torch.roofline import hw  # noqa: E402
 
-# published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense TF32 on the tensor cores, and HBM3 bandwidth
-PEAK_FP32 = ("fp32 67 TFLOP/s", 67e12)
-PEAK_TF32 = ("tf32 495 TFLOP/s", 495e12)
-PEAK_BYTES_PER_S = 3.35e12
+# published H100 SXM peaks (NVIDIA data sheet, ``repro_torch.roofline.hw``):
+# fp32 outside the tensor cores, dense TF32 on the tensor cores, and HBM3
+# bandwidth
+PEAK_FP32 = ("fp32 67 TFLOP/s", hw.PEAK_FLOPS_FP32)
+PEAK_TF32 = ("tf32 495 TFLOP/s", hw.PEAK_FLOPS_TF32)
+PEAK_BYTES_PER_S = hw.HBM_BW
 
 ATTN_ATOL = 1e-4     # max abs error of K2 vs its plain version
 SDPA_ATOL = 1e-2     # the SDPA yardstick vs K2's plain version
@@ -1300,29 +1320,35 @@ def _recording_shapes(fn):
     recorded by :func:`_launch_key`, counting only the calls that launched
     the kernel: (its result, {kernel: {shape: launches}})."""
     from repro_torch.kernels import ops
-    inner = {name: getattr(ops, name) for name in KERNEL_META}
+    # each wrapper in ops by the kernel it launches: K1's vocab-shard form
+    # (a head split over the vocab, the sharded route) is K1's launch
+    kernel_of = dict({name: name for name in KERNEL_META},
+                     cross_entropy_lse_gold="chunked_cross_entropy")
+    inner = {attr: getattr(ops, attr) for attr in kernel_of}
+    counters = _launch_counters()
     shapes = {}
 
-    def recording(name):
-        wrapper = inner[name]
+    def recording(attr):
+        wrapper, name = inner[attr], kernel_of[attr]
+        counter = counters[name]
 
         def call(*args, **kw):
-            before = wrapper.launches
+            before = counter.launches
             out = wrapper(*args, **kw)
-            if wrapper.launches > before:
+            if counter.launches > before:
                 per = shapes.setdefault(name, {})
                 key = _launch_key(name, args, kw)
-                per[key] = per.get(key, 0) + wrapper.launches - before
+                per[key] = per.get(key, 0) + counter.launches - before
             return out
         return call
 
-    for name in inner:
-        setattr(ops, name, recording(name))
+    for attr in inner:
+        setattr(ops, attr, recording(attr))
     try:
         return fn(), shapes
     finally:
-        for name, wrapper in inner.items():
-            setattr(ops, name, wrapper)
+        for attr, wrapper in inner.items():
+            setattr(ops, attr, wrapper)
 
 
 def _attention_modes(shapes: dict) -> dict:
@@ -2743,6 +2769,10 @@ def phase_serving() -> dict:
 
 # --------------------------------------------------------------- phase 8
 SYSTIME_ARCH = "mamba2-370m"
+# phases 8 (b) and 9 (c) run it at published widths cut to this many of
+# its 48 layers: at all 48 the script took 1259.4 s of its 1200 on a
+# slow host (phase 8 alone 330 s); phase 4 drives all 48
+SYSTIME_LAYERS = 24
 # the reference tests' HEAVY fault plan (tests/test_faults.py)
 HEAVY = dict(seed=7, crash_rate=0.1, drop_rate=0.1, corrupt_rate=0.15,
              diverge_rate=0.1, slowdown_rate=0.1)
@@ -2987,8 +3017,8 @@ def _reckon_async(cfg, decomps, concurrency: int, buffer_size: int):
 
 
 def phase_systime_lm(smi: str) -> dict:
-    """(b) mamba2-370m at published widths and all 48 layers, FeDepth over
-    6 clients with phase 4's data and batch: an async run over
+    """(b) mamba2-370m at published widths cut to SYSTIME_LAYERS, FeDepth
+    over 6 clients with phase 4's data and batch: an async run over
     ``profiles_for_ratios`` (concurrency 3, buffer 2, 2 server versions),
     its peak held to :func:`_reckon_async`; then, under deterministic
     algorithms, 3 sync rounds over the same system under the HEAVY fault
@@ -3009,11 +3039,13 @@ def phase_systime_lm(smi: str) -> dict:
     from repro_torch.fl.seq import build_lm_context, build_seq_data
     from repro_torch.fl.systime import (AsyncEngine, SystemModel,
                                         profiles_for_ratios)
-    cfg = get_config(SYSTIME_ARCH)
+    full = get_config(SYSTIME_ARCH)
+    cfg = dataclasses.replace(full, num_layers=SYSTIME_LAYERS)
     data = build_seq_data(6, n_per_client=16, n_test=16,
                           vocab_size=cfg.vocab_size, seq_len=256, seed=0)
     log(f"system time and faults (b): FeDepth on {cfg.name}, "
-        f"{cfg.num_layers} layers (all), d_model {cfg.d_model}, 6 clients")
+        f"{cfg.num_layers} layers (cut from {full.num_layers}), d_model "
+        f"{cfg.d_model}, 6 clients")
     by_run = {}
     needed = ("chunked_cross_entropy", "mamba2_scan")
 
@@ -3361,8 +3393,8 @@ def phase_scale_store(data, smi: str) -> None:
 
 
 def phase_scale_obs(data, smi: str) -> dict:
-    """(c) mamba2-370m at published widths and all 48 layers, FeDepth over
-    6 clients with phase 4's data, 2 ``RoundEngine`` rounds under
+    """(c) mamba2-370m at published widths cut to SYSTIME_LAYERS, FeDepth
+    over 6 clients with phase 4's data, 2 ``RoundEngine`` rounds under
     deterministic algorithms: telemetry off, then with a full capture
     (spans, metrics, the memory auditor, the dynamics) and a JSONL history
     sink — states bitwise, the sink's round lines equal to the off run's
@@ -3390,13 +3422,15 @@ def phase_scale_obs(data, smi: str) -> dict:
     from repro_torch.obs import MemoryAuditor, Obs, make_obs
     from repro_torch.obs.audit import ERROR_RATIO_BOUNDS
 
-    cfg = get_config(SYSTIME_ARCH)
+    full = get_config(SYSTIME_ARCH)
+    cfg = dataclasses.replace(full, num_layers=SYSTIME_LAYERS)
     lm_data = build_seq_data(6, n_per_client=16, n_test=16,
                              vocab_size=cfg.vocab_size, seq_len=256, seed=0)
     sim = SimConfig(rounds=2, participation=0.5, lr=0.05, momentum=0.9,
                     local_steps=1, batch_size=4, scenario="fair", seed=0)
     log(f"scale and observability (c): FeDepth on {cfg.name}, "
-        f"{cfg.num_layers} layers (all), telemetry off and full")
+        f"{cfg.num_layers} layers (cut from {full.num_layers}), telemetry "
+        f"off and full")
     by_run = {}
     needed = ("chunked_cross_entropy", "mamba2_scan")
     cap = make_obs("full")
@@ -4262,6 +4296,331 @@ def phase_train(smi: str, device="cuda") -> dict:
     return by_run
 
 
+# --------------------------------------------------------------- phase 12
+EP_TOKENS = (4, 256)         # (b): 4 x 256 tokens through one MoE layer
+EP_CF = 8.0                  # (b): capacity factor (no token dropped)
+EP_TOL = 1e-4                # (b): max abs diff over the reference's scale
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank ``nccl`` process group over a ``HashStore`` (no port),
+    destroyed on exit."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _local_routes(fn):
+    """``fn()`` with each sharded kernel op's route recorded: (its
+    result, {op: [whether each call went through ``local_map``]})."""
+    from repro_torch.kernels import ops
+    names = ("_sharded_attention", "_sharded_cross_entropy")
+    inner = {n: getattr(ops, n) for n in names}
+    local_map, routes, current = ops._local_map, {}, []
+
+    def mapped(*a, **kw):
+        routes[current[-1]][-1] = True
+        return local_map(*a, **kw)
+
+    def recording(name):
+        def call(*a, **kw):
+            routes.setdefault(name, []).append(False)
+            current.append(name)
+            try:
+                return inner[name](*a, **kw)
+            finally:
+                current.pop()
+        return call
+
+    ops._local_map = mapped
+    for n in names:
+        setattr(ops, n, recording(n))
+    try:
+        return fn(), routes
+    finally:
+        ops._local_map = local_map
+        for n in names:
+            setattr(ops, n, inner[n])
+
+
+def phase_shard_step(smi: str, device="cuda") -> dict:
+    """(a) ``make_train_step`` on yi-6b at published widths cut to
+    TRAIN_CUT layers, batch 4 x 256 (phase 11 (b)'s step), with the
+    parameters laid out by ``launch.sharding.param_specs`` as DTensors on
+    a ("data", "model") mesh of (1, 1), fsdp off and on, under
+    deterministic algorithms: K1 and K2 launch through ``local_map`` on
+    every call, and parameters, momentum, loss and gnorm equal the
+    unsharded step's bitwise."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import build, common
+    from repro_torch.tree import tree_map
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_CUT)
+    B, T = 4, 256
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    batch = {k: torch.from_numpy(a).to(device) for k, a in next(TokenPipeline(
+        cfg.vocab_size, T, B, seed=0).batches()).items()}
+    mesh = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "model"))
+    bspecs = sharding.batch_specs(cfg, InputShape("t", T, B, "train"), mesh)
+    log(f"sharded step (a): {cfg.name}, {TRAIN_CUT} layers (cut from "
+        f"{full.num_layers}), batch {B} x {T}, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+        f"(a one-rank nccl group)")
+    by_run, ref = {}, None
+    with deterministic():
+        # one unsharded step first: cuBLAS's and the allocator's warm-up
+        # would otherwise land in the first timed step
+        steps.make_train_step(lm, lr=3e-3)(
+            tree_map(torch.clone, params), tree_map(torch.zeros_like,
+                                                    params), batch)
+        for name in ("unsharded", "fsdp off", "fsdp on"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "unsharded":
+                p = tree_map(torch.clone, params)
+                v = tree_map(torch.zeros_like, params)
+                b, step = batch, steps.make_train_step(lm, lr=3e-3)
+                ctx = contextlib.nullcontext()
+            else:
+                specs = sharding.param_specs(cfg, params, mesh,
+                                             fsdp=name == "fsdp on")
+                p = sharding.distribute(params, specs, mesh)
+                v = sharding.distribute(tree_map(torch.zeros_like, params),
+                                        specs, mesh)
+                b = {k: distribute_tensor(t, mesh, sharding.placements(
+                    bspecs[k], mesh)) for k, t in batch.items()}
+                step = steps.make_train_step(
+                    lm, lr=3e-3,
+                    grad_shardings=sharding.to_named(specs, mesh))
+                ctx = common.mesh_context(mesh)
+            with ctx:
+                ((p, v, m), launches, secs, shapes), routes = _local_routes(
+                    lambda: _counted(lambda: step(p, v, b)))
+            peak = torch.cuda.max_memory_allocated()
+            if name != "unsharded":
+                p, v = (tree_map(lambda t: t.full_tensor(), x)
+                        for x in (p, v))
+                m = {k: x.full_tensor() if common.is_dtensor(x) else x
+                     for k, x in m.items()}
+            log(f"  {name}: loss {float(m['loss']):.6f}, gnorm "
+                f"{float(m['gnorm']):.4f}, step {secs:.4f} s, peak "
+                f"{peak / GIB:.2f} GiB, launches {launches}, local_map "
+                f"routes {routes} ({smi})")
+            missing = [k for k in K1_K2 if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"sharded step {name}: {missing} not "
+                                     f"launched")
+            calls = [routes.get(n, []) for n in ("_sharded_attention",
+                                                  "_sharded_cross_entropy")]
+            if name != "unsharded" and not all(c and all(c) for c in calls):
+                raise AssertionError(f"sharded step {name}: K1 / K2 not "
+                                     f"through local_map on every call "
+                                     f"({routes})")
+            by_run[TRAIN_ARCH, f"sharded step, {TRAIN_CUT} layers, {name}"] \
+                = (launches, shapes)
+            if ref is None:
+                ref = (p, v, m)
+                continue
+            diff = _first_difference((p, v), ref[:2])
+            same = diff is None and all(torch.equal(m[k], ref[2][k])
+                                        for k in ("loss", "gnorm"))
+            log(f"  {name} vs unsharded: parameters, momentum, loss and "
+                f"gnorm bitwise {same} "
+                f"{'ok' if same else 'FAIL: ' + str(diff)}")
+            if not same:
+                raise AssertionError(f"sharded step {name}: {diff}")
+            del p, v, m
+    del ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_run
+
+
+def phase_vocab_shard(smi: str) -> None:
+    """(a') K1's vocab-shard form, what the sharded route runs on each rank
+    for a head split over the vocab (one card cannot split it: checked
+    here on the pieces).  The yi-6b head at N 1024 (phase 3's train-step
+    case) cut into two halves of the vocab, the labels spread over both:
+    per half, the kernel's per-row log-sum-exp and gold logit
+    (``chunked_ce.cross_entropy_lse_gold``) against the plain version's,
+    and the halves combined as the all-reduce combines them (log-add-exp
+    of the two, sum of the golds) against the plain NLL of the whole
+    head, each within CE_RTOL.  Not counted: a check."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_ce import cross_entropy_lse_gold
+    cfg = get_config(TRAIN_ARCH)
+    N, D, V = 1024, cfg.d_model, cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    h = torch.randn(1, N, D, device="cuda", generator=gen)
+    w = torch.randn(D, V, device="cuda", generator=gen) / math.sqrt(D)
+    labels = torch.randint(0, V, (1, N), device="cuda", generator=gen)
+    labels[:, ::7] = -100
+    half = V // 2
+    lse, gold, errs = [], [], {}
+    for i, (lo, hi) in enumerate(((0, half), (half, V))):
+        wi = w[:, lo:hi].contiguous()
+        here = (labels >= lo) & (labels < hi)
+        li = torch.where(here, labels - lo, hi - lo)
+        got, want = cross_entropy_lse_gold(h, wi, li), \
+            ref.cross_entropy_lse_gold(h, wi, li)
+        for k, a, b in zip(("lse", "gold"), got, want):
+            errs[f"{k} {i}"] = float(((a - b).abs()).max()
+                                     / b.abs().max().clamp(min=1e-30))
+        lse.append(got[0])
+        gold.append(got[1])
+    nll = torch.where(labels.reshape(-1) >= 0,
+                      torch.logaddexp(*lse) - gold[0] - gold[1], 0.0)
+    whole = ref.cross_entropy_rows(h, w, labels)
+    errs["nll"] = float((nll - whole).abs().max() / whole.abs().max())
+    ok = all(math.isfinite(e) and e <= CE_RTOL for e in errs.values())
+    log(f"vocab shard (a'): K1 on two halves of the {cfg.name} head, N {N} "
+        f"D {D} V {V}: max rel err " + ", ".join(
+            f"{k} {e:.2e}" for k, e in errs.items())
+        + f" (tol {CE_RTOL:g}) {'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        raise AssertionError(f"K1's vocab-shard form disagrees: {errs}")
+
+
+def phase_moe_ep(smi: str, device="cuda") -> None:
+    """(b) ``moe_ep.forward_ep`` at qwen3-moe's published widths: one MoE
+    layer (128 experts, D 4096, F 1536, top 8; 9.66 GB of experts in fp32)
+    over 4 x 256 tokens on the (1, 1) mesh (M = 1), forward and backward
+    at capacity factor 8, against ``moe.forward`` on the same parameters:
+    output, aux and every gradient within EP_TOL of the reference's scale
+    (max abs diff over max abs value).  Time, peak and the bytes through
+    ``all_to_all`` logged."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, moe_ep
+    cfg = get_config(MOE_ARCH)
+    mesh = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "model"))
+    gen = torch.Generator(device=device).manual_seed(5)
+    p = moe.init(gen, cfg, device=device)
+    B, T = EP_TOKENS
+    x = torch.randn(B, T, cfg.d_model, generator=gen, device=device) * 0.5
+    w = torch.randn(B, T, cfg.d_model, generator=gen, device=device)
+    experts = sum(p[k].numel() * 4 for k in ("w_gate", "w_up", "w_down"))
+    log(f"moe_ep (b): {cfg.name} one MoE layer, E {cfg.num_experts}, D "
+        f"{cfg.d_model}, F {cfg.moe_d_ff}, top {cfg.experts_per_token}, "
+        f"experts {experts / 1e9:.2f} GB fp32, {B} x {T} tokens, cf {EP_CF}")
+    # NCCL sets a communicator up at its first collective: not timed
+    import torch.distributed as dist
+    warm = torch.zeros(1, device=device)
+    dist.all_to_all_single(torch.empty_like(warm), warm,
+                           group=mesh.get_group("model"))
+    out = {}
+    for name in ("moe.forward", "forward_ep"):
+        leaves = [x] + [p[k] for k in sorted(p)]
+        for t in leaves:
+            t.requires_grad_(True)
+        # a first call warms what each path sets up once (forward_ep's
+        # first took 10.4 s, the next 0.11, measured on H100s): untimed
+        for timed in (False, True):
+            for t in leaves:
+                t.grad = None
+            moe_ep.A2A.update(calls=0, bytes=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if name == "moe.forward":
+                y, aux = moe.forward(p, cfg, x, capacity_factor=EP_CF)
+            else:
+                y, aux = moe_ep.forward_ep(p, cfg, x, mesh,
+                                           capacity_factor=EP_CF)
+            wy = (y * (w if name == "moe.forward" else
+                       moe_ep._laid_out(w, mesh, y.placements)))
+            (wy.sum() + aux).backward()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if name == "forward_ep":
+            y, aux = y.full_tensor(), aux.full_tensor()
+        grads = {"x": x.grad}
+        grads.update({k: p[k].grad for k in p})
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+        out[name] = (y.detach(), aux.detach(), grads)
+        log(f"  {name}: forward + backward {secs:.4f} s (warm), peak "
+            f"{peak / GIB:.2f} GiB"
+            + (f", all_to_all {moe_ep.A2A['calls']} calls, "
+               f"{moe_ep.A2A['bytes'] / 2**20:.1f} MiB sent forward (M = 1:"
+               f" the exchange stays on the card)"
+               if name == "forward_ep" else "") + f" ({smi})")
+    (ry, raux, rg), (ey, eaux, eg) = out["moe.forward"], out["forward_ep"]
+    errs = {"out": float((ey - ry).abs().max() / ry.abs().max()),
+            "aux": abs(float(eaux) - float(raux)) / abs(float(raux))}
+    errs.update({f"d {k}": float((eg[k] - rg[k]).abs().max()
+                                 / rg[k].abs().max()) for k in rg})
+    ok = max(errs.values()) <= EP_TOL
+    log(f"  forward_ep vs moe.forward (max abs diff / max abs): "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f" (tol {EP_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"forward_ep disagrees: {errs}")
+    del out, p, x, w, rg, eg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(smi: str) -> None:
+    """(c) ``launch.dryrun.dryrun_one("yi-6b", "train_4k")``: the 16 x 16
+    fake mesh on this machine's PyTorch, costed from depth 1 and 2 at the
+    step's accumulation; its per-device terms at the H100's constants
+    (``roofline.hw``)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rec = dryrun.dryrun_one(TRAIN_ARCH, "train_4k", verbose=False)
+    log(f"dry run (c): {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+        f"({rec['chips']} ranks, accumulation {rec['accum_steps']}) in "
+        f"{time.perf_counter() - t0:.1f} s: per device "
+        f"{rec['flops_per_device']:.4e} FLOPs, "
+        f"{rec['bytes_per_device']:.4e} bytes, collectives "
+        f"{rec['collectives_by_kind']} bytes; t_compute "
+        f"{rec['t_compute_s']:.4e} s (bf16 989 TFLOP/s), t_memory "
+        f"{rec['t_memory_s']:.4e} s (3.35 TB/s), t_collective "
+        f"{rec['t_collective_s']:.4e} s (NVLink 450 GB/s), bottleneck "
+        f"{rec['bottleneck']}, useful FLOPs ratio "
+        f"{rec['useful_flops_ratio']:.4f}, argument bytes "
+        f"{rec['mem_argument_size_in_bytes'] / GIB:.2f} GiB a device "
+        f"(constants: H100 SXM data sheet; this card: {smi})")
+    if not (rec["status"] == "ok" and rec["flops_per_device"] > 0
+            and rec["collective_bytes_per_device"] > 0):
+        raise AssertionError(f"dry run: {rec}")
+
+
+def phase_sharded(smi: str, device="cuda") -> dict:
+    """Phase 12: the sharded layer."""
+    t0 = time.perf_counter()
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    with one_rank_group():
+        by_run = phase_shard_step(smi, device)
+        phase_vocab_shard(smi)
+        phase_moe_ep(smi, device)
+    phase_dryrun(smi)
+    log(f"phase 12 (the sharded layer): {time.perf_counter() - t0:.1f} s")
+    return by_run
+
+
 PATHS = (
     # (arch, layers, kernels that must launch on the path, method)
     ("qwen2-7b", 4, K1_K2, "fedepth"),
@@ -4343,29 +4702,42 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def done(what: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
     smi = phase_env()
     phase_build()
     numbers, checked = phase_kernels()
+    done("phases 1-3")
     by_run = {}
     for arch, layers, path_kernels, method, *clients in PATHS:
         by_run[arch, method] = phase_path(arch, layers, path_kernels, method,
                                           *clients)
+        done(f"path {arch} {method}")
     by_run["qwen2-vl-2b", "client update, vision prefix"] = \
         phase_vlm_client()
     by_run["whisper-small", "fedepth client update"] = \
         phase_whisper_client()
     by_run[MOE_ARCH, "fedepth client update"] = phase_moe_client()
+    done("client updates")
     data = phase_images()
+    done("images")
     phase_comm(data)
+    done("comm")
     by_run.update(phase_systime(data, smi))
+    done("system time")
     by_run.update(phase_scale(data, smi))
+    done("scale")
     del data
     phase_vit()
+    done("vit")
     for arch, runs in phase_serving().items():
         for stage, run in runs.items():
             by_run[arch, f"serve {stage}"] = run
+    done("serving")
     by_run.update(phase_stacked(smi))
     by_run.update(phase_train(smi))
+    by_run.update(phase_sharded(smi))
     kernels = [dict(name=name, **KERNEL_META[name], **numbers[name])
                for name in KERNEL_META]
     attribute_launches(kernels, checked, by_run)

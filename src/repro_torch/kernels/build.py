@@ -27,6 +27,10 @@ KERNELS = ("flash_attention", "chunked_ce", "mamba2_ssd", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# devices whose tensors take a kernel's plain version: the CPU (the
+# tests) and ``meta`` (shapes without data: the dry run's counting)
+PLAIN_DEVICES = ("cpu", "meta")
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 

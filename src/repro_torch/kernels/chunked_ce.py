@@ -9,7 +9,10 @@ tensor it runs the plain version (:func:`repro_torch.kernels.ref.
 cross_entropy_rows`, re-exported here as ``plain_rows``; the plain mean,
 ``ref.cross_entropy_logits``, is ``plain``).  A ``(G, D, V)`` head is one
 head per group of B/G batch rows, all G in one launch (the stacked path's
-clients, ``kernels/ops.py``).
+clients, ``kernels/ops.py``).  :func:`cross_entropy_lse_gold` is one
+rank's share of a head split over the vocab (the sharded route): the
+same launch, each row's log-sum-exp and gold logit folded from the
+kernel's per-tile partials.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import PLAIN_DEVICES
 from repro_torch.kernels.ref import cross_entropy_logits as plain
+from repro_torch.kernels.ref import cross_entropy_lse_gold as plain_lse_gold
 from repro_torch.kernels.ref import cross_entropy_rows as plain_rows
 
 
@@ -45,8 +50,32 @@ def cross_entropy_rows(hidden: torch.Tensor,    # (B, T, D)
     (V, D) table (a tied head, ``embed.T``), which the kernel reads in
     place; a (G, D, V) stack of heads likewise (``embed.transpose(1, 2)``
     of a (G, V, D) stack), G dividing B."""
-    if hidden.device.type == "cpu":
+    if hidden.device.type in PLAIN_DEVICES:
         return plain_rows(hidden, lm_head, labels)
+    return _launch(hidden, lm_head, labels)[0]
+
+
+def cross_entropy_lse_gold(hidden: torch.Tensor,    # (B, T, D)
+                           lm_head: torch.Tensor,   # (D, V)
+                           labels: torch.Tensor,    # (B, T) in [0, V]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per token, shape (B*T,) each: the log-sum-exp of the logits over
+    the head's V columns and the gold logit, 0 where the label is V (a
+    column no tile holds): one rank's share of a head split over the
+    vocab (``kernels/ops.py``).  One launch; both are folded from the
+    kernel's per-tile (max, sum-exp, gold) partials."""
+    if hidden.device.type in PLAIN_DEVICES:
+        return plain_lse_gold(hidden, lm_head, labels)
+    _, partials = _launch(hidden, lm_head, labels)
+    pm, pl, pg = partials                        # (N, vocab tiles) each
+    m = pm.max(1).values
+    lse = m + torch.log((pl * torch.exp(pm - m[:, None])).sum(1))
+    return lse, pg.sum(1)
+
+
+def _launch(hidden, lm_head, labels):
+    """One launch of the kernel: (the NLL (N,), its partials (max,
+    sum-exp, gold), each (N, vocab tiles))."""
     if hidden.device.type != "cuda":
         raise ValueError(f"chunked_cross_entropy: unsupported device "
                          f"{hidden.device}")
@@ -75,7 +104,7 @@ def cross_entropy_rows(hidden: torch.Tensor,    # (B, T, D)
     N = B * T
     nll = torch.empty(N, device=hidden.device, dtype=torch.float32)
     if N == 0:
-        return nll
+        return nll, nll.view(3, 0, 0)
     lbl = labels.reshape(N).to(torch.int32).contiguous()
     lib = _lib()
     nvt = lib.ce_num_vocab_tiles(V)
@@ -87,7 +116,7 @@ def cross_entropy_rows(hidden: torch.Tensor,    # (B, T, D)
                      torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "chunked_cross_entropy")
     chunked_cross_entropy.launches += 1
-    return nll
+    return nll, partials.view(3, N, nvt)
 
 
 def chunked_cross_entropy(hidden: torch.Tensor,    # (B, T, D)

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import PLAIN_DEVICES
 from repro_torch.kernels.flash_chunked import MIN_PAIRS, flash_chunked
 from repro_torch.kernels.ref import attention as plain
 
@@ -38,7 +39,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Forward only; ``repro_torch.kernels.ops.attention`` adds the
     backward."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         long = q.shape[1] * k.shape[1] >= MIN_PAIRS
         return (flash_chunked if long else plain)(
             q, k, v, causal=causal, sliding_window=sliding_window,

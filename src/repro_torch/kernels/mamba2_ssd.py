@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import PLAIN_DEVICES
 from repro_torch.kernels.ref import mamba2_scan as plain
 
 
@@ -40,7 +41,7 @@ def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,T,H,P), final state (B,H,P,N)), both fp32.  Forward
     only; ``repro_torch.kernels.ops.mamba2`` adds the backward."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return plain(x, dt, A, Bm, Cm, D, initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"mamba2_scan: unsupported device {x.device}")

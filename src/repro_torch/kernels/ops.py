@@ -25,6 +25,20 @@ Function's own ``apply`` on the folded, grouped tensors, so a vmapped
 forward differentiated by plain autograd (the stacked path's step) runs
 the grouped backward: the scans' plain versions and the CE's formulas
 take the grouped parameters as they are.
+
+**The sharded route.**  A public op given DTensors (parameters laid out
+by ``launch.sharding`` on a ``DeviceMesh``) runs its kernel on each
+rank's local shards through ``local_map``: K2 over batch and heads (GQA
+kv heads left whole are sliced per rank), K3 and K4 over batch and heads,
+K1 over rows and, for a head split over the vocab, over the vocab: each
+rank's kernel gives its shard's log-sum-exp and gold logit, which an
+all-reduce combines.  Where the placements do not make the work local (a
+sequence split, heads that do not divide the axis, an FSDP split of the
+head's contracted dim), the operands are first gathered on those mesh
+dims, at one named line (``_laid_out``); no op is left to DTensor's
+propagation, and no DTensor reaches a plain version.  A mesh dim of size
+1 splits nothing.  A ``meta`` tensor (the dry run's) takes the plain
+version, as a CPU tensor does.
 """
 from __future__ import annotations
 
@@ -32,8 +46,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dtensor import is_dtensor
 from repro_torch.kernels import ref
-from repro_torch.kernels.chunked_ce import chunked_cross_entropy
+from repro_torch.kernels.chunked_ce import (chunked_cross_entropy,
+                                            cross_entropy_lse_gold)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba2_ssd import mamba2_scan
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -131,6 +147,9 @@ def attention_bwd(q, k, v, g, causal, sliding_window, q_offset, scale):
 def attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
               q_offset: int = 0, scale: Optional[float] = None):
     """Differentiable GQA attention (see ``kernels/flash_attention.py``)."""
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, causal, sliding_window, q_offset,
+                                  scale)
     return FlashAttention.apply(q, k, v, causal, sliding_window, q_offset,
                                 scale)
 
@@ -211,6 +230,8 @@ def cross_entropy(hidden, lm_head, labels
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable (mean NLL over valid labels, n_valid) of
     ``hidden @ lm_head`` (see ``kernels/chunked_ce.py``)."""
+    if is_dtensor(hidden):
+        return _sharded_cross_entropy(hidden, lm_head, labels)
     return ChunkedCrossEntropy.apply(hidden, lm_head, labels, None)
 
 
@@ -310,6 +331,9 @@ def mamba2(x, dt, A, Bm, Cm, D, initial_state=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable Mamba2 SSD scan -> (y (B,T,H,P), final state
     (B,H,P,N)) (see ``kernels/mamba2_ssd.py``)."""
+    if is_dtensor(x):
+        return _sharded_scan(_mamba2_local, (x, dt, A, Bm, Cm, D),
+                             _MAMBA2_ROLES, initial_state)
     if initial_state is None:
         B, _, H, P = x.shape
         initial_state = x.new_zeros(B, H, P, Bm.shape[-1],
@@ -349,8 +373,301 @@ def rwkv6(r, k, v, w, u, initial_state=None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable RWKV6 WKV scan -> (y (B,T,H,D), final state
     (B,H,D,D)) (see ``kernels/rwkv6_scan.py``)."""
+    if is_dtensor(r):
+        return _sharded_scan(_rwkv6_local, (r, k, v, w, u), _RWKV6_ROLES,
+                             initial_state)
     if initial_state is None:
         B, _, H, D = r.shape
         initial_state = r.new_zeros(B, H, D, D, dtype=torch.float32)
     return Rwkv6Scan.apply(*(t.contiguous() for t in
                              (r, k, v, w, u, initial_state)))
+
+
+# --------------------------------------------------------------------------
+# the sharded route: DTensor operands
+# --------------------------------------------------------------------------
+def _local_map(fn, out_placements, in_placements, grad_placements, mesh):
+    """``local_map`` with each tensor's placements as a list (a tuple
+    would read as one entry per output) and None for a non-tensor."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def lists(pls):
+        return tuple(None if p is None else list(p) for p in pls)
+    return local_map(fn, out_placements=lists(out_placements),
+                     in_placements=lists(in_placements),
+                     in_grad_placements=(None if grad_placements is None
+                                         else lists(grad_placements)),
+                     device_mesh=mesh)
+
+
+def _shards(t, i: int, d: int) -> bool:
+    """Whether DTensor ``t`` splits tensor dim ``d`` evenly on mesh dim
+    ``i`` (evenly over every mesh dim that splits ``d``)."""
+    from torch.distributed.tensor import Shard
+    pl, mesh = t.placements[i], t.device_mesh
+    if not (isinstance(pl, Shard) and pl.dim % t.dim() == d % t.dim()):
+        return False
+    ways = 1
+    for j, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim % t.dim() == d % t.dim():
+            ways *= mesh.size(j)
+    return t.shape[d] % ways == 0
+
+
+def _plan(args, roles):
+    """Where the work splits into local pieces, and the layout that makes
+    it so.  ``roles`` gives, for each argument, the tensor dim of each
+    role (None where the argument lacks it: a parameter has no batch,
+    ``Bm`` is shared by every head).  A mesh dim of size > 1 takes the
+    first role that every argument having it splits evenly there; an
+    argument lacking that role must be whole there, and every argument is
+    whole on a mesh dim that takes no role.  Returns ({mesh dim: role},
+    the placements each argument needs: its own wherever the work is
+    already local)."""
+    from torch.distributed.tensor import Replicate
+    mesh = args[0].device_mesh
+    for t in args:
+        if t is not None and (not is_dtensor(t) or t.device_mesh != mesh):
+            raise TypeError("the sharded route needs every operand a "
+                            "DTensor on one mesh")
+    by_mesh = {}
+    for i in range(mesh.ndim):
+        if mesh.size(i) == 1:
+            continue
+        for role in roles[0]:
+            have = [(t, rl[role]) for t, rl in zip(args, roles)
+                    if t is not None and rl[role] is not None]
+            if have and all(_shards(t, i, d) for t, d in have):
+                by_mesh[i] = role
+                break
+    want = []
+    for t, rl in zip(args, roles):
+        if t is None:
+            want.append(None)
+            continue
+        want.append(tuple(
+            p if mesh.size(i) == 1 or (i in by_mesh
+                                       and rl[by_mesh[i]] is not None)
+            else Replicate() for i, p in enumerate(t.placements)))
+    return by_mesh, want
+
+
+def _is_laid_out(args, want) -> bool:
+    return all(t is None or tuple(t.placements) == w
+               for t, w in zip(args, want))
+
+
+def _laid_out(args, want):
+    """The arguments in the layout ``want``: the sharded route's one
+    redistribution, a gather on each mesh dim where the work is not
+    local (a sequence split, heads that do not divide the axis, an FSDP
+    split of a weight's contracted dim), so that the kernel still runs on
+    each rank's pieces and no op is left to DTensor's propagation."""
+    return tuple(t if t is None or tuple(t.placements) == w
+                 else t.redistribute(t.device_mesh, w)
+                 for t, w in zip(args, want))
+
+
+def _grad_placements(t, by_mesh, role_dims):
+    """A local gradient's placements: the argument's own, except a pending
+    sum on each mesh dim whose role the argument lacks (every rank's
+    gradient of a shared operand is a share of the whole)."""
+    if t is None:
+        return None
+    from torch.distributed.tensor import Partial
+    out = list(t.placements)
+    for i, role in by_mesh.items():
+        if role_dims[role] is None:
+            out[i] = Partial()
+    return tuple(out)
+
+
+def _placements(t):
+    return None if t is None else tuple(t.placements)
+
+
+_ATTN_ROLES = ({"batch": 0, "heads": 2},) * 3
+# q heads split, kv heads whole (fewer kv heads than the axis splits)
+_ATTN_KV_WHOLE = ({"batch": 0, "heads": 2}, {"batch": 0, "heads": None},
+                  {"batch": 0, "heads": None})
+
+
+def _kv_slice(q, k, v):
+    """For q heads split on one mesh dim and kv heads whole there: (that
+    mesh dim, the function from a rank's coordinate on it to the [lo, hi)
+    of the kv heads its q heads read, {mesh dim: role}), when each rank's
+    q heads fill whole kv groups or lie in one; else None."""
+    by_mesh, want = _plan((q, k, v), _ATTN_KV_WHOLE)
+    heads = [i for i, r in by_mesh.items() if r == "heads"]
+    if not _is_laid_out((q, k, v), want) or len(heads) != 1:
+        return None
+    i = heads[0]
+    hq_loc = q.shape[2] // q.device_mesh.size(i)
+    rep = q.shape[2] // k.shape[2]
+    if hq_loc % rep and rep % hq_loc:
+        return None
+    return i, lambda r: (r * hq_loc // rep,
+                         (r * hq_loc + hq_loc - 1) // rep + 1), by_mesh
+
+
+def _sharded_attention(q, k, v, causal, sliding_window, q_offset, scale):
+    """K2 on each rank's batch rows and heads: kv heads split with their
+    q heads (a local q head reads its local kv head), or left whole and
+    each rank slicing the kv heads its q heads read (GQA with fewer kv
+    heads than the axis splits); else on the layout :func:`_plan` gives
+    (gathered on the mesh dims that split neither)."""
+    def run(ql, kl, vl):
+        return FlashAttention.apply(ql, kl, vl, causal, sliding_window,
+                                    q_offset, scale)
+
+    mesh = q.device_mesh
+    by_mesh, want = _plan((q, k, v), _ATTN_ROLES)
+    kv = None if _is_laid_out((q, k, v), want) else _kv_slice(q, k, v)
+    if kv is None:
+        return _local_map(run, (want[0],), want, None, mesh)(
+            *_laid_out((q, k, v), want))
+    i, span, by_mesh = kv
+
+    def local(ql, kl, vl):
+        lo, hi = span(mesh.get_local_rank(i))
+        return run(ql, kl[:, :, lo:hi].contiguous(),
+                   vl[:, :, lo:hi].contiguous())
+    grads = (q.placements,) + tuple(
+        _grad_placements(t, by_mesh, _ATTN_KV_WHOLE[1]) for t in (k, v))
+    return _local_map(local, (q.placements,),
+                      tuple(map(_placements, (q, k, v))), grads,
+                      mesh)(q, k, v)
+
+
+class VocabShardCrossEntropy(torch.autograd.Function):
+    """K1 on one rank's vocab shard [v0, v0 + V_loc) of a head split over
+    the vocab on the mesh dims ``groups`` (local tensors, inside
+    ``local_map``).  The kernel gives each row's log-sum-exp over the
+    shard and its gold logit where the label lies in the shard; an
+    all-reduce over ``groups`` makes them the whole vocab's (the max, then
+    the sum of exp; the gold, a sum).  Returns the per-row NLL, 0 where
+    the label is ignored, the same on every rank of ``groups``.  The
+    backward recomputes each chunk of the shard's logits: d logits =
+    (softmax over the whole vocab - onehot) * g; d hidden is this shard's
+    share of a sum over the shards, d head the shard's own."""
+
+    @staticmethod
+    def forward(hidden, lm_head, labels, v0, groups):
+        from torch.distributed import _functional_collectives as funcol
+        V = lm_head.shape[-1]
+        local = labels - v0
+        here = (labels >= 0) & (local >= 0) & (local < V)
+        # V: a column the shard lacks (the gold logit lies elsewhere)
+        lse, gold = cross_entropy_lse_gold(hidden, lm_head,
+                                           torch.where(here, local, V))
+        for g in groups:
+            m = funcol.all_reduce(lse, "max", g)
+            lse = m + torch.log(funcol.all_reduce(torch.exp(lse - m),
+                                                  "sum", g))
+            gold = funcol.all_reduce(gold, "sum", g)
+        return torch.where(labels.reshape(-1) >= 0, lse - gold, 0.0), lse
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        hidden, lm_head, labels, ctx.v0, _ = inputs
+        ctx.save_for_backward(hidden, lm_head, labels, output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _glse):
+        hidden, lm_head, labels, lse = ctx.saved_tensors
+        D, V = lm_head.shape
+        h = hidden.reshape(-1, D).float()
+        w = lm_head.float()
+        local = labels.reshape(-1).long() - ctx.v0
+        hit = ((labels.reshape(-1) >= 0) & (local >= 0)
+               & (local < V)).float()
+        coef = g.float() * (labels.reshape(-1) >= 0).float()
+        dh, dw = [], torch.zeros_like(w)
+        for s in range(0, h.shape[0], CE_CHUNK):
+            p = torch.exp(h[s:s + CE_CHUNK] @ w
+                          - lse[s:s + CE_CHUNK, None])
+            p.scatter_add_(1, local[s:s + CE_CHUNK].clamp(0, V - 1)[:, None],
+                           -hit[s:s + CE_CHUNK, None])
+            p *= coef[s:s + CE_CHUNK, None]
+            dh.append(p @ w.T)
+            dw += h[s:s + CE_CHUNK].T @ p
+        return (torch.cat(dh).reshape(hidden.shape).to(hidden.dtype),
+                dw.to(lm_head.dtype), None, None, None)
+
+
+# (hidden, lm_head, labels): rows split the tokens, vocab the head's V
+_CE_ROLES = ({"rows": 0, "vocab": None}, {"rows": None, "vocab": 1},
+             {"rows": 0, "vocab": None})
+
+
+def _sharded_cross_entropy(hidden, lm_head, labels):
+    """K1 on each rank's rows and, for a head split over the vocab, its
+    vocab shard (:class:`VocabShardCrossEntropy`), on the layout
+    :func:`_plan` gives.  Each rank's loss is its share of the mean: its
+    rows' NLL over the global count of valid labels (an all-reduce over
+    the mesh dims that split the rows; clamped at 1, as the kernel's
+    mean), a pending sum there."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = hidden.device_mesh
+    by_mesh, want = _plan((hidden, lm_head, labels), _CE_ROLES)
+    args = _laid_out((hidden, lm_head, labels), want)
+    rows = [(mesh, i) for i, r in by_mesh.items() if r == "rows"]
+    vocab = [(mesh, i) for i, r in by_mesh.items() if r == "vocab"]
+    v0 = compute_local_shape_and_global_offset(
+        lm_head.shape, mesh, want[1])[1][-1]
+
+    def local(h, w, lbl):
+        valid = (lbl >= 0).sum()
+        n = valid
+        for g in rows:
+            n = funcol.all_reduce(n, "sum", g)
+        n = n.clamp(min=1)
+        if vocab:
+            nll, _ = VocabShardCrossEntropy.apply(h, w, lbl, v0, vocab)
+            return nll.sum() / n, n
+        loss, _ = ChunkedCrossEntropy.apply(h, w, lbl, None)
+        return loss * (valid / n), n
+    out = tuple(Partial() if by_mesh.get(i) == "rows" else Replicate()
+                for i in range(mesh.ndim))
+    grads = tuple(_grad_placements(t, by_mesh, rl)
+                  for t, rl in zip(args, _CE_ROLES))
+    return _local_map(local, (out, (Replicate(),) * mesh.ndim), want,
+                      grads, mesh)(*args)
+
+
+# (x, dt, A, Bm, Cm, D) and the state; (r, k, v, w, u) and the state
+_MAMBA2_ROLES = ({"batch": 0, "heads": 2}, {"batch": 0, "heads": 2},
+                 {"batch": None, "heads": 0}, {"batch": 0, "heads": None},
+                 {"batch": 0, "heads": None}, {"batch": None, "heads": 0},
+                 {"batch": 0, "heads": 1})
+_RWKV6_ROLES = ({"batch": 0, "heads": 2},) * 4 + (
+    {"batch": None, "heads": 0}, {"batch": 0, "heads": 1})
+
+
+def _mamba2_local(x, dt, A, Bm, Cm, D, s0):
+    return mamba2(x, dt, A, Bm, Cm, D, s0)
+
+
+def _rwkv6_local(r, k, v, w, u, s0):
+    return rwkv6(r, k, v, w, u, s0)
+
+
+def _sharded_scan(local, args, roles, s0):
+    """K3 / K4 on each rank's batch rows and heads, on the layout
+    :func:`_plan` gives (a head-shared operand whole on every rank, its
+    gradient a pending sum)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = args[0].device_mesh
+    by_mesh, want = _plan(args + (s0,), roles)
+    state_pl = [Replicate()] * mesh.ndim
+    for i, role in by_mesh.items():
+        state_pl[i] = Shard(roles[-1][role])
+    laid = _laid_out(args + (s0,), want)
+    grads = tuple(_grad_placements(t, by_mesh, rl)
+                  for t, rl in zip(laid, roles))
+    return _local_map(local, (want[0], tuple(state_pl)), want, grads,
+                      mesh)(*laid)

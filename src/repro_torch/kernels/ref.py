@@ -109,6 +109,22 @@ def cross_entropy_rows(hidden: torch.Tensor,     # (B, T, D)
     return torch.where(labels >= 0, logz - gold, 0.0).reshape(-1)
 
 
+def cross_entropy_lse_gold(hidden: torch.Tensor,    # (B, T, D)
+                           lm_head: torch.Tensor,   # (D, V)
+                           labels: torch.Tensor,    # (B, T) in [0, V]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per token, shape (B*T,) each: the log-sum-exp of the logits over
+    the head's V columns, and the gold logit, 0 where the label is V (a
+    column the head lacks).  A vocab shard's half of the CE."""
+    ct = torch.float64 if hidden.dtype == torch.float64 else torch.float32
+    logits = hidden.to(ct) @ lm_head.to(ct)
+    V = logits.shape[-1]
+    gold = torch.gather(logits, -1,
+                        labels.clamp(max=V - 1).long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1).reshape(-1),
+            torch.where(labels < V, gold, 0.0).reshape(-1))
+
+
 def mamba2_scan(x: torch.Tensor,     # (B, T, H, P)
                 dt: torch.Tensor,    # (B, T, H)  positive step sizes
                 A: torch.Tensor,     # (H,) or (G, H)  negative decay rates

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import PLAIN_DEVICES
 from repro_torch.kernels.ref import rwkv6_scan as plain
 
 
@@ -39,7 +40,7 @@ def rwkv6_scan(r: torch.Tensor,      # (B, T, H, D)
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,T,H,D), final state (B,H,D,D)), both fp32.  Forward
     only; ``repro_torch.kernels.ops.rwkv6`` adds the backward."""
-    if r.device.type == "cpu":
+    if r.device.type in PLAIN_DEVICES:
         return plain(r, k, v, w, u, initial_state)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")

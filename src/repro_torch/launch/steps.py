@@ -20,8 +20,19 @@ returned loss and metrics are 0-d device tensors.
 As in the reference, the steps inline their SGD rather than call
 ``train/optim.py``.  The reference's ``kernel_force`` is gone: the
 tensors' device picks the route (``kernels/ops.py``).
-``abstract_params``, ``abstract_opt_state`` and the sharding arguments
-belong with the sharding layer, which is not ported yet.
+
+**Sharded steps.**  Parameters laid out as DTensors by
+``launch.sharding.distribute`` run through the same steps: the update
+is the same ``torch._foreach_*`` calls on DTensors, and the clip norm
+over sharded gradients is a DTensor reduction, so it reduces across
+ranks.  ``grad_shardings`` (a placements tree, ``sharding.to_named``)
+pins each gradient's layout before the update, as the reference pins its
+fp32 accumulator; by default a gradient takes its parameter's.
+``microbatch_shardings`` (the placements of one microbatch's dict)
+reshards each microbatch after the split: a contiguous slice of a
+batch-sharded batch lies on a few ranks only.  The reference stacks its
+microbatches on a leading axis; the port's are a list, so the
+placements are those of one microbatch, without that axis.
 """
 from __future__ import annotations
 
@@ -30,14 +41,31 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import InputShape
+from repro_torch.dtensor import is_dtensor
+from repro_torch.launch.sharding import spec_leaves
 from repro_torch.models.api import LM
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
-def microbatches(batch: Dict, n: int) -> List[Dict]:
+def abstract_params(lm: LM, dtype=torch.bfloat16):
+    """The model's parameter tree on the ``meta`` device in ``dtype``
+    (the reference's bf16): shapes and dtypes, no allocation."""
+    return lm.init(0, device="meta", dtype=dtype)
+
+
+def abstract_opt_state(params_shape):
+    """fp32 momentum slot per param, on the ``meta`` device."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                          device="meta"), params_shape)
+
+
+def microbatches(batch: Dict, n: int, shardings: Optional[Dict] = None
+                 ) -> List[Dict]:
     """``batch`` split into ``n`` contiguous microbatches along the batch
     axis: dim 1 for ``mrope_positions`` ((3, B, T)), dim 0 for every other
-    tensor; a 0-d leaf (or a non-tensor) is kept whole in each."""
+    tensor; a 0-d leaf (or a non-tensor) is kept whole in each.  With
+    ``shardings`` ({key: placements}), each DTensor part is redistributed
+    to its key's placements."""
     if n == 1:
         return [batch]
 
@@ -49,12 +77,27 @@ def microbatches(batch: Dict, n: int) -> List[Dict]:
             raise ValueError(f"{key}: batch of {x.shape[dim]} does not "
                              f"split into {n} microbatches")
         size = x.shape[dim] // n
-        return x.narrow(dim, i * size, size)
+        out = x.narrow(dim, i * size, size)
+        if shardings is not None and is_dtensor(out):
+            out = out.redistribute(out.device_mesh, shardings[key])
+        return out
 
     return [{k: part(k, x, i) for k, x in batch.items()} for i in range(n)]
 
 
-def _accumulate_grads(loss_fn, leaves, batch, accum_steps: int):
+def _pin_grads(grads, leaves, grad_shardings) -> list:
+    """Each DTensor gradient in the placements ``grad_shardings`` gives it
+    (leaf order), or its parameter's."""
+    pins = (spec_leaves(grad_shardings) if grad_shardings is not None
+            else [t.placements if is_dtensor(t) else None for t in leaves])
+    return [g if g is None or not is_dtensor(g)
+            or tuple(g.placements) == tuple(pl)
+            else g.redistribute(g.device_mesh, pl)
+            for g, pl in zip(grads, pins)]
+
+
+def _accumulate_grads(loss_fn, leaves, batch, accum_steps: int,
+                      microbatch_shardings=None):
     """Run ``loss_fn(microbatch) -> (loss, metrics)`` over the
     microbatches, each ``.backward()`` of loss / ``accum_steps`` summing
     into the leaves' ``.grad`` (the reference's fp32 mean of the
@@ -66,7 +109,7 @@ def _accumulate_grads(loss_fn, leaves, batch, accum_steps: int):
         t.requires_grad_(True)
     loss, metrics = None, {}
     try:
-        for mb in microbatches(batch, accum_steps):
+        for mb in microbatches(batch, accum_steps, microbatch_shardings):
             l, metrics = loss_fn(mb)
             (l / accum_steps).backward()
             part = l.detach() / accum_steps
@@ -102,7 +145,8 @@ def _momentum_update_(leaves, vel, grads, *, lr: float, momentum: float,
 # training
 # --------------------------------------------------------------------------
 def make_train_step(lm: LM, *, lr: float = 1e-3, momentum: float = 0.9,
-                    clip_norm: float = 1.0, accum_steps: int = 1):
+                    clip_norm: float = 1.0, accum_steps: int = 1,
+                    grad_shardings=None, microbatch_shardings=None):
     """Full-model SGD-momentum train step (the paper-faithful baseline a
     memory-rich client runs; also the standard pretraining step):
     ``train_step(params, momentum_state, batch) -> (params,
@@ -118,7 +162,9 @@ def make_train_step(lm: LM, *, lr: float = 1e-3, momentum: float = 0.9,
     def train_step(params, momentum_state, batch):
         leaves, vel = tree_leaves(params), tree_leaves(momentum_state)
         loss, metrics, grads = _accumulate_grads(
-            lambda mb: lm.loss_fn(params, mb), leaves, batch, accum_steps)
+            lambda mb: lm.loss_fn(params, mb), leaves, batch, accum_steps,
+            microbatch_shardings)
+        grads = _pin_grads(grads, leaves, grad_shardings)
         # the global norm over every gradient, fp32 on the device: per-leaf
         # norms (no squared copy of a leaf), then the norm of those
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
@@ -135,7 +181,8 @@ def make_train_step(lm: LM, *, lr: float = 1e-3, momentum: float = 0.9,
 
 def make_fedepth_block_step(lm: LM, lo: int, hi: int, *, lr: float = 1e-3,
                             momentum: float = 0.9, accum_steps: int = 1,
-                            buffered_z: bool = False):
+                            buffered_z: bool = False,
+                            microbatch_shardings=None):
     """The paper's technique as a datacenter train step: differentiate only
     ``runner.split(params, lo, hi)`` (units [lo, hi) + head); the prefix
     runs without a gradient.  Optimizer state exists ONLY for the block,
@@ -170,7 +217,8 @@ def make_fedepth_block_step(lm: LM, lo: int, hi: int, *, lr: float = 1e-3,
         leaves = tree_leaves(train)
         loss, _, grads = _accumulate_grads(
             lambda mb: one_loss(params, train, mb), leaves, batch,
-            accum_steps)
+            accum_steps, microbatch_shardings)
+        grads = _pin_grads(grads, leaves, None)
         _momentum_update_(leaves, tree_leaves(block_momentum), grads, lr=lr,
                           momentum=momentum)
         params = runner.merge(params, train, lo=lo, hi=hi)
@@ -219,17 +267,20 @@ def make_multi_decode_step(lm: LM, n_tokens: int):
 
 def step_for_shape(lm: LM, shape: InputShape, *,
                    fedepth_block: Optional[Tuple[int, int]] = None,
-                   accum_steps: int = 1, buffered_z: bool = False,
+                   accum_steps: int = 1, grad_shardings=None,
+                   microbatch_shardings=None, buffered_z: bool = False,
                    decode_tokens: int = 1):
     """(step_fn, needs_opt_state) for the shape's mode."""
     if shape.mode == "train":
         if fedepth_block is not None:
             lo, hi = fedepth_block
-            fn, _ = make_fedepth_block_step(lm, lo, hi,
-                                            accum_steps=accum_steps,
-                                            buffered_z=buffered_z)
+            fn, _ = make_fedepth_block_step(
+                lm, lo, hi, accum_steps=accum_steps, buffered_z=buffered_z,
+                microbatch_shardings=microbatch_shardings)
             return fn, True
-        return make_train_step(lm, accum_steps=accum_steps), True
+        return make_train_step(lm, accum_steps=accum_steps,
+                               grad_shardings=grad_shardings,
+                               microbatch_shardings=microbatch_shardings), True
     if shape.mode == "prefill":
         return make_prefill_step(lm), False
     if decode_tokens > 1:

@@ -32,10 +32,13 @@ class LM:
     def init(self, seed: Union[int, torch.Generator], *,
              device: DeviceLike = None, dtype=torch.float32):
         """Random parameters on ``device`` (the GPU unless ``"cpu"``),
-        drawn from ``seed`` or a generator on that device."""
+        drawn from ``seed`` or a generator on that device.  On ``"meta"``
+        (shapes and dtypes, no data: ``launch.steps.abstract_params``)
+        nothing is drawn."""
         dev = resolve_device(device)
+        gen_dev = "cpu" if dev.type == "meta" else dev
         gen = seed if isinstance(seed, torch.Generator) \
-            else torch.Generator(device=dev).manual_seed(int(seed))
+            else torch.Generator(device=gen_dev).manual_seed(int(seed))
         return self.module.init(self.cfg, generator=gen, device=dev,
                                 dtype=dtype)
 

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dtensor import grad_as_value, whole_where_uneven
 from repro_torch.kernels import ops
 from repro_torch.models import common
 
@@ -46,6 +47,11 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    # a DTensor's heads split evenly, or not at all (DTensor has no rule
+    # for an uneven unflatten)
+    q = whole_where_uneven(q, -1, cfg.num_heads)
+    k = whole_where_uneven(k, -1, cfg.num_kv_heads)
+    v = whole_where_uneven(v, -1, cfg.num_kv_heads)
     return (q.reshape(B, T, cfg.num_heads, hd),
             k.reshape(B, T, cfg.num_kv_heads, hd),
             v.reshape(B, T, cfg.num_kv_heads, hd))
@@ -78,7 +84,7 @@ def forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     out = ops.attention(q, k, v, causal=causal,
                         sliding_window=cfg.sliding_window)
     B, T = out.shape[:2]
-    return out.reshape(B, T, -1) @ p["wo"]
+    return grad_as_value(out.reshape(B, T, -1)) @ p["wo"]
 
 
 def decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -94,7 +100,11 @@ def decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     slots with an fp32 softmax, each KV head for its group of q heads.
     Returns out (B, 1, D)."""
     B, S, Hkv, hd = cache_k.shape
+    x = common.ws_replicate(x)
     q, k, v = _project_qkv(p, cfg, x)
+    q = common.ws_batch_sharded(q)
+    k = common.ws_batch_sharded(k)
+    v = common.ws_batch_sharded(v)
     pos = torch.full((B, 1), cache_index, dtype=torch.int32, device=x.device)
     q, k = _rotate(cfg, q, k, pos, mrope_positions)
 
@@ -108,10 +118,12 @@ def decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     qf = q.float().reshape(B, Hkv, -1, hd) * (hd ** -0.5)
     logits = torch.einsum("bgrd,bkgd->bgrk", qf, cache_k.float())
     valid = torch.arange(S, device=x.device) < min(cache_index + 1, S)
-    logits = torch.where(valid, logits, -1e30)
+    # the same on every rank: replicated for a DTensor run
+    logits = torch.where(common.replicate_like(valid, logits), logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", probs, cache_v.float()).to(x.dtype)
-    return out.reshape(B, 1, -1) @ p["wo"]
+    out = common.ws_replicate(out.reshape(B, 1, -1))
+    return out @ p["wo"]
 
 
 def cross_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -130,4 +142,4 @@ def cross_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(1, 1, cfg.num_heads, hd)
     out = ops.attention(q, k, v, causal=False)
-    return out.reshape(B, T, -1) @ p["wo"]
+    return grad_as_value(out.reshape(B, T, -1)) @ p["wo"]

@@ -11,9 +11,12 @@ choice) pairs, in the flat (token, choice) order; a pair past its
 expert's capacity is dropped (it adds a zero into slot 0, and its
 combine weight is 0).  The expert FFNs run batched as (E, C, D) through
 ``torch.bmm`` — the reference's ``ecd,edf`` einsums, plain products
-outside any kernel of its own.  The reference's expert-parallel path
-(``moe_ep``: ``shard_map`` and ``all_to_all`` over a mesh) is not
-ported.
+outside any kernel of its own.  Under ``common.ep_moe()`` inside a
+mesh context whose "model" axis divides E, :func:`forward` delegates to
+the expert-parallel path (``models/moe_ep.py``: explicit all-to-all
+exchanges over that axis), as the reference's ``moe.py:70`` does.  On
+DTensors the dispatch pins its expert buffers with ``common.shard_hint``
+as the reference does (``moe.py:95–107``).
 """
 from __future__ import annotations
 
@@ -54,10 +57,11 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
-def router_topk(logits: torch.Tensor, k: int
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """logits (N, E) -> (top-k probabilities (N, k), renormalised; their
-    expert ids (N, k), in descending probability; the aux loss).
+def router_probs(logits: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """logits (N, E) -> (the fp32 router probabilities (N, E); the top-k
+    probabilities (N, k), renormalised; their expert ids (N, k), in
+    descending probability).
 
     Ties go to the lower expert id, as ``jax.lax.top_k`` breaks them: a
     stable descending sort keeps equal probabilities in id order."""
@@ -66,6 +70,15 @@ def router_topk(logits: torch.Tensor, k: int
     topk_probs, topk_idx = order.values[:, :k], order.indices[:, :k]
     topk_probs = topk_probs / topk_probs.sum(-1, keepdim=True).clamp_min(
         1e-9)
+    return probs, topk_probs, topk_idx
+
+
+def router_topk(logits: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """logits (N, E) -> (top-k probabilities (N, k), renormalised; their
+    expert ids (N, k), in descending probability; the aux loss)
+    (:func:`router_probs`)."""
+    probs, topk_probs, topk_idx = router_probs(logits, k)
     # Switch-style load balance: E * sum_e(frac_tokens_e * mean_prob_e),
     # the first choice decides the load
     E = logits.shape[-1]
@@ -80,6 +93,15 @@ def forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     """x (B, T, D) -> (out (B, T, D), the router's aux loss, fp32)."""
     B, T, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
+
+    if common._EP_MOE:
+        mesh = common._context_mesh()
+        if mesh is not None and "model" in mesh.mesh_dim_names \
+                and E % mesh.size(mesh.mesh_dim_names.index("model")) == 0:
+            from repro_torch.models import moe_ep
+            return moe_ep.forward_ep(p, cfg, x, mesh,
+                                     capacity_factor=capacity_factor)
+
     N = B * T
     xt = x.reshape(N, D)
 
@@ -94,11 +116,16 @@ def forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     slot = torch.where(keep, flat_idx * C + pos, torch.zeros_like(pos))
 
     xr = xt.repeat_interleave(K, dim=0) * keep[:, None].to(x.dtype)
+    xr = common.shard_hint(xr, "data", None)
     expert_in = torch.zeros(E * C, D, dtype=x.dtype, device=x.device
                             ).index_add(0, slot, xr).reshape(E, C, D)
+    # pin the expert-parallel layout: expert axis on "model"
+    expert_in = common.shard_hint(expert_in, "model", None, None)
     h = F.silu(torch.bmm(expert_in, p["w_gate"])) \
         * torch.bmm(expert_in, p["w_up"])
+    h = common.shard_hint(h, "model", None, None)
     expert_out = torch.bmm(h, p["w_down"])                      # (E, C, D)
+    expert_out = common.shard_hint(expert_out, "model", None, None)
 
     # a dropped pair reads slot 0 with weight 0: no output, no gradient
     gathered = expert_out.reshape(E * C, D)[slot]               # (N*K, D)

@@ -19,8 +19,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dtensor import grad_as_value, vocab_whole
 from repro_torch.kernels import ops
 from repro_torch.models import attention, common, moe
 
@@ -88,20 +90,25 @@ def _sublayers(unit: Params, cfg: ModelConfig) -> List[Params]:
 def _ffn(layer: Params, cfg: ModelConfig, kind: str, x):
     """The layer's feed-forward sub-block (pre-norm, SwiGLU or MoE,
     residual) -> (x, the MoE router's aux loss or 0.0)."""
-    h = common.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    h = grad_as_value(common.rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
     if kind == "moe":
         out, aux = moe.forward(layer["moe"], cfg, h)
-        return x + out, aux
+        return x + common.batch_hint(out), aux
     mlp = layer["mlp"]
-    return x + common.swiglu(h, mlp["w_gate"], mlp["w_up"],
-                             mlp["w_down"]), 0.0
+    return x + common.batch_hint(common.swiglu(h, mlp["w_gate"], mlp["w_up"],
+                                               mlp["w_down"])), 0.0
 
 
 def _layer_forward(layer: Params, cfg: ModelConfig, kind: str, x,
                    positions, mrope_positions):
-    h = common.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    x = x + attention.forward(layer["attn"], cfg, h, positions,
-                              mrope_positions=mrope_positions)
+    # on DTensors: each sublayer's output is reduced over "model" where the
+    # row-split projection makes it (``batch_hint``), and the gradient of
+    # each normed input where the column-split products make it
+    # (``grad_as_value``): Megatron's two all-reduces a sublayer; no-ops
+    # on plain tensors
+    h = grad_as_value(common.rms_norm(x, layer["attn_norm"], cfg.norm_eps))
+    x = x + common.batch_hint(attention.forward(
+        layer["attn"], cfg, h, positions, mrope_positions=mrope_positions))
     return _ffn(layer, cfg, kind, x)
 
 
@@ -118,16 +125,29 @@ def apply_unit_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
     aux = 0.0
     for unit in p["units"][lo:hi]:
         for i, layer in enumerate(_sublayers(unit, cfg)):
-            x, a = _layer_forward(layer, cfg, kinds[i], x, positions,
+            x, a = _layer_forward(layer, cfg, kinds[i],
+                                  common.batch_hint(x), positions,
                                   mrope_positions)
             aux = aux + a
     return x, aux
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; on a DTensor table the embedding op (the
+    indexing's backward, an ``index_put``, fails DTensor's propagation in
+    PyTorch 2.11), with a vocab-split table first resplit on its model
+    dim (an all-to-all): 2.11 cannot take the lookup's backward through
+    the masked partial a vocab split gives."""
+    if not common.is_dtensor(table):
+        return table[tokens]
+    table = vocab_whole(table)
+    return F.embedding(tokens, table)
+
+
 def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                  vision_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    x = p["embed"][tokens]
+    x = _lookup(p["embed"], tokens)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     return x
@@ -161,7 +181,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     """Mean next-token CE (+ ``router_aux_coef`` x the MoE aux loss) on a
     train batch; no loss on the vision prefix."""
     x, aux = _forward_batch(p, cfg, batch)
-    x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    x = grad_as_value(common.rms_norm(x, p["final_norm"], cfg.norm_eps))
     if batch.get("vision_embeds") is not None:
         # K1 reads the hidden states as one contiguous (B*T, D) block
         x = x[:, batch["vision_embeds"].shape[1]:].contiguous()
@@ -190,7 +210,7 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     tokens (as the reference: at B 4, top 8 of 128 experts, one slot an
     expert).  Returns (logits (B, 1, V), ``cache``)."""
     kinds = cfg.layer_kinds()
-    x = p["embed"][tokens]
+    x = common.ws_replicate(_lookup(p["embed"], tokens))
     for u, unit in enumerate(p["units"]):
         for i, layer in enumerate(_sublayers(unit, cfg)):
             l = u * cfg.moe_every + i

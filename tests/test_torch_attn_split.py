@@ -26,6 +26,8 @@ the design's precision before a card runs it.  The emulation sums each
 there instead, which the per-slice restart keeps small (the card check
 measures it).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -154,6 +156,7 @@ CASES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _emulated(case, passes=3):
     B, Tq, Tk, Hq, Hkv, D, causal, window, q_offset = CASES[case]
     q, k, v = _inputs(sum(map(ord, case)), B, Tq, Tk, Hq, Hkv, D)

@@ -22,6 +22,8 @@ sums each 8-deep product in fp32 with round to nearest; the tensor cores
 truncate there instead, which the per-slice restart keeps small (the card
 check measures it).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -99,6 +101,7 @@ CASES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _emulated(case):
     B, T, D, V, ignore, tied = CASES[case]
     h, w, lbl = _inputs(sum(map(ord, case)), B, T, D, V, ignore, tied)

@@ -85,13 +85,24 @@ def datasets():
     return j_federated(**DATA), build_federated(**DATA, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def ref_caches():
+    """method -> the ``caches`` dict every reference context of that
+    method shares: the reference's compiled client steps (keyed by the
+    block's geometry and the optimizer's settings) then serve each of
+    the method's cases (fedepth under "fair" and "surplus")."""
+    return {}
+
+
 @pytest.mark.parametrize("method,scenario", [
     ("fedepth", "fair"), ("m-fedepth", "fair"), ("fedepth", "surplus"),
     ("fedavg", "fair")])
-def test_two_rounds_match_reference_engine(datasets, method, scenario):
+def test_two_rounds_match_reference_engine(datasets, ref_caches, method,
+                                          scenario):
     jdata, tdata = datasets
     jctx = j_context(jdata, JSim(scenario=scenario, **SIM),
                      model_cfg=j_reduced(num_classes=10, image_size=16))
+    jctx.caches = ref_caches.setdefault(method, jctx.caches)
     ctx = build_context(tdata, SimConfig(scenario=scenario, **SIM),
                         model_cfg=reduced(num_classes=10, image_size=16),
                         device="cpu")

@@ -54,7 +54,8 @@ def model():
     jcfg = j_reduced("qwen2-7b")
     cfg = get_reduced_config("qwen2-7b")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    jparams = j_build(jcfg).init(jax.random.PRNGKey(0))
+    # jitted: the eager init compiles every random draw on its own
+    jparams = jax.jit(j_build(jcfg).init)(jax.random.PRNGKey(0))
     # non-trivial qkv biases and norm scales so the checks see them
     rng = np.random.default_rng(1)
 
@@ -99,9 +100,9 @@ def test_common_blocks_match_reference():
 def test_loss_and_gradients_match_reference(model):
     jcfg, cfg, jparams, params, batch_np, batch_t = model
     jlm = j_build(jcfg)
-    (jloss, jmet), jgrads = jax.value_and_grad(
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jlm.loss_fn(p, batch_np, kernel_force="ref"),
-        has_aux=True)(jparams)
+        has_aux=True))(jparams)
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)

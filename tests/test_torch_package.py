@@ -55,7 +55,8 @@ def test_convert_round_trip(arch, key, leaf):
     lists (with ``shared``, ``invocation_norms`` and m-FeDepth's
     ``aux_norms`` as they are) and whisper's ``enc_layers`` /
     ``dec_layers``; per-layer entries are the stacked rows."""
-    jparams = jax.tree.map(np.asarray, j_build(j_reduced(arch)).init(
+    # jitted: the eager init compiles every random draw on its own
+    jparams = jax.tree.map(np.asarray, jax.jit(j_build(j_reduced(arch)).init)(
         jax.random.PRNGKey(1)))
     jparams["aux_norms"] = np.random.default_rng(0).standard_normal(
         (2, 8)).astype(np.float32)
@@ -149,6 +150,11 @@ SCALE_OBS_PATH = ("fl.scale.history", "fl.scale.population",
 # the training launch path
 TRAIN_LAUNCH_PATH = ("data", "data.tokens", "train.optim", "launch.steps",
                      "launch.train", "kernels.flash_chunked")
+# the sharded layer: DTensor helpers, sharding rules, the expert-parallel
+# MoE, the roofline, the dry run and the many-rank test helper
+SHARDED_PATH = ("dtensor", "launch.sharding", "launch.dryrun",
+                "models.moe_ep", "roofline", "roofline.hw",
+                "roofline.analysis", "testing.dist")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -162,20 +168,24 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(names) >= 28
     missing = [m for m in IMAGE_PATH + SERVING_PATH + MOE_COMM_PATH
                + SYSTIME_FAULTS_PATH + SCALE_OBS_PATH + TRAIN_LAUNCH_PATH
+               + SHARDED_PATH
                if f"repro_torch.{m}" not in names]
     assert not missing, missing
 
 
 def test_runtime_modules_do_not_import_testing():
-    """The training, wire, system-time, fault, serving and launch modules
-    stand without ``repro_torch.testing`` (the parity helpers): the wire
-    format is the program's, not the tests'."""
+    """The training, wire, system-time, fault, serving, launch and sharded
+    modules stand without ``repro_torch.testing`` (the parity helpers and
+    the many-rank spawner): the wire format is the program's, not the
+    tests'."""
     code = ("import sys, repro_torch.fl.engine, repro_torch.fl.comm, "
             "repro_torch.fl.registry, repro_torch.launch.serve, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
             "repro_torch.fl.systime, repro_torch.fl.faults, "
             "repro_torch.train.checkpoint, repro_torch.fl.scale, "
-            "repro_torch.obs, repro_torch.obs.export; "
+            "repro_torch.obs, repro_torch.obs.export, "
+            "repro_torch.launch.sharding, repro_torch.launch.dryrun, "
+            "repro_torch.models.moe_ep, repro_torch.roofline; "
             "print(sorted(m for m in sys.modules "
             "if m.startswith('repro_torch.testing')))")
     env = {**os.environ, "PYTHONPATH": str(SRC)}

@@ -215,7 +215,8 @@ def model(request):
     jcfg = dataclasses.replace(j_reduced(arch), num_layers=4)
     cfg = dataclasses.replace(get_reduced_config(arch), num_layers=4)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    jparams = _perturb(j_build(jcfg).init(jax.random.PRNGKey(0)))
+    # jitted: the eager init compiles every random draw on its own
+    jparams = _perturb(jax.jit(j_build(jcfg).init)(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(2)
     batches_np = []
     for _ in range(2):
@@ -243,9 +244,9 @@ def test_init_matches_reference_tree(model):
 def test_loss_and_gradients_match_reference(model):
     jcfg, cfg, jparams, batches_np, batches_t = model
     jlm = j_build(jcfg)
-    (jloss, jmet), jgrads = jax.value_and_grad(
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jlm.loss_fn(p, batches_np[0], kernel_force="ref"),
-        has_aux=True)(jparams)
+        has_aux=True))(jparams)
     params = params_from_reference(jparams, device="cpu")
     leaves = tree_leaves(params)
     for t in leaves:

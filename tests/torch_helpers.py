@@ -1,6 +1,9 @@
 """Helpers shared by the port's parity tests (not a test module): the
-one-thread fixture, tree comparison, and a two-round engine parity run
-of an LM config against the reference's engine."""
+one-thread fixture, tree comparison, a two-round engine parity run of an
+LM config against the reference's engine, and a mesh for the sharding
+rules alone."""
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -17,6 +20,13 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def abstract_mesh(shape, axes):
+    """A mesh's axis sizes and names without processes: all that
+    ``repro_torch.launch.sharding``'s rules read (the reference's tests
+    give its rules such a namespace too)."""
+    return SimpleNamespace(shape=tuple(shape), mesh_dim_names=tuple(axes))
 
 
 def assert_trees_close(a, b, msg, atol=1e-4, rtol=1e-3):
