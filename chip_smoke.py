@@ -39,12 +39,13 @@ Phases (each fails loudly; any failure exits non-zero):
    parameter against today's launch);
 4. paths: two FeDepth rounds (``RoundEngine`` over ``build_lm_context``)
    on each ported family at every published width, random weights from a
-   seed: qwen2-7b (depth cut to 4 layers), mamba2-370m (all 48 layers,
-   tied head), rwkv6-7b (depth cut to 4 layers) and zamba2-1.2b (all 6
-   groups: K1, K2 and K3); two DepthFL rounds of the same qwen2-7b with
-   all 6 clients in each round (each trains the prefix its budget fits,
-   jointly: the r = 1 client all 4 layers, which the run requires); two
-   m-FeDepth rounds of mamba2-370m (``aux_norms``); FeDepth on
+   seed: qwen2-7b (depth cut to 4 layers), mamba2-370m (MAMBA2_LAYERS,
+   24 of its 48 layers, tied head), rwkv6-7b (depth cut to 4 layers) and
+   zamba2-1.2b (all 6 groups: K1, K2 and K3); two DepthFL rounds of the
+   same qwen2-7b with all 6 clients in each round (each trains the
+   prefix its budget fits, jointly: the r = 1 client all 4 layers, which
+   the run requires); two
+   m-FeDepth rounds of that mamba2-370m (``aux_norms``); FeDepth on
    h2o-danube-3-4b, minicpm-2b and qwen2-vl-2b (as text), each cut to 4
    layers; one client update of that qwen2-vl-2b with 256 stubbed vision
    embeddings; and one FeDepth client update of whisper-small (all 24
@@ -93,8 +94,8 @@ Phases (each fails loudly; any failure exits non-zero):
 7. serving (``repro_torch.launch.serve``) of yi-6b, h2o-danube-3-4b,
    minicpm-2b, qwen2-vl-2b (256 stubbed vision embeddings, M-RoPE),
    mamba2-370m, rwkv6-7b and zamba2-1.2b at every published width and
-   depth, and qwen3-moe-235b-a22b at every width cut to 4 layers, one
-   after another: a timed ``LM.prefill`` of 4 x 512 tokens
+   half their published depth (SERVE_LAYERS), and qwen3-moe-235b-a22b
+   at every width cut to 4 layers, one after another: a timed ``LM.prefill`` of 4 x 512 tokens
    (K2, K3 or K4; zamba2 K2 and K3) and the serve loop at batch 4
    (64-token prompts walked through the cache, 32 generated tokens;
    decode attention is plain, each ssm or hybrid step runs K3 or K4 at
@@ -156,12 +157,15 @@ Phases (each fails loudly; any failure exits non-zero):
    ``client_update_batched`` (``vmap(grad)``, each kernel's vmap rule
    one launch a group) against the same clients' sequential
    ``client_update`` calls, 2 batches of 4 x 256 tokens a client:
-   mamba2-370m (48 layers, 4 clients: K1 tied + K3), rwkv6-7b (4 layers,
+   mamba2-370m (24 layers, 4 clients: K1 tied + K3), rwkv6-7b (4 layers,
    4 clients: K1 + K4) and qwen2-7b (4 layers, 3 clients, cut from 4:
    K1 + K2).  Each client's state within rtol 2e-4 / atol 2e-5 of its
    sequential twin, the stacked launches of each kernel the sequential
    ones over the group size; wall, peak beside the reckoning and idle
-   share of both logged.  Then one FeDepth round of mamba2-370m over 6
+   share of both logged.  Each group then runs under ``disable_remat``
+   (peak beside its reckoning) and with remat again, both warm, for
+   remat's wall and device time.  Then one FeDepth
+   round of mamba2-370m (24 layers) over 6
    clients (two groups of 2 stack) under the vectorized scheduler and
    under ``ShardedScheduler(mesh=["cuda:0"])``, deterministic: bitwise.
 11. the training launch path (``repro_torch.launch.train`` /
@@ -195,8 +199,28 @@ Phases (each fails loudly; any failure exits non-zero):
    ``moe.forward`` within EP_TOL (each after an untimed first call;
    seconds, peaks and the bytes through ``all_to_all`` logged); (c)
    ``launch.dryrun.dryrun_one("yi-6b", "train_4k")`` on the 16 x 16 fake
-   mesh, costed at its accumulation of 8, its roofline terms at the
-   H100's constants.
+   mesh, costed at its accumulation of 8, with per-unit rematerialization
+   and without, its roofline terms at the H100's constants.
+13. per-unit rematerialization (``models.common.maybe_checkpoint``, on
+   by default in every training path above: phases 4 and 8–12 run each
+   trained unit's forward again in its backward, K2–K4 launching again,
+   and their reckonings price that mode; the stacked groups of phase 10
+   run it under ``vmap``, count the units it rematerialized and run
+   again without it, (d)):
+   (a) phase 11 (b)'s step, yi-6b cut to 4 layers at 4 x 256, with remat
+   and without (``disable_remat``), under deterministic algorithms:
+   parameters, momentum, loss and gnorm bitwise, K2 launched twice as
+   often with remat, K1 as often; each mode's warm seconds and peak
+   beside its own reckoning, the peak within it and RECKON_LIMIT; (b) the
+   same at 4 x 2048 tokens; (c) one FeDepth client update at published
+   widths, one block a unit, of mamba2-370m (2 layers: K1, K3), rwkv6-7b
+   (1 layer: K1, K4), zamba2-1.2b (1 group: K1, K2, K3), whisper-small
+   (1 encoder and 1 decoder layer: K1, K2) and qwen3-moe-235b-a22b (1
+   layer: K1, K2), each within REMAT_ATOL of the same update on the CPU,
+   its recompute launching K2 / K3 / K4 more often than the update under
+   ``disable_remat`` and K1 as often.  Phase 13's depths are cut from
+   phase 4's (24, 4, 6 groups, 24 units, 1 layer) so that each CPU twin
+   fits the time and the host's memory.
 
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (every timed shape beside the first under ``heads``, each with
@@ -831,6 +855,10 @@ def phase_kernels():
              Hq=32, Hkv=4, seed=71, timed=True, path="yi-6b"),
         dict(attn, name="yi-6b train microbatch B2 T256 Hq32 Hkv4 D128 "
              "causal", B=2, Hq=32, Hkv=4, seed=72, timed=True, path="yi-6b"),
+        # phase 13 (b): the 4-layer step at 4 x 2048 tokens
+        dict(attn, name="yi-6b train step B4 T2048 Hq32 Hkv4 D128 causal",
+             Tq=2048, Tk=2048, Hq=32, Hkv=4, seed=76, timed=True,
+             path="yi-6b"),
     ]
     ce = dict(N=1024, D=3584, V=152064, ignore_every=7)
     ce_cases = [
@@ -899,6 +927,9 @@ def phase_kernels():
              D=4096, V=64000, ignore_every=7, seed=74, path="yi-6b"),
         dict(name="yi-6b head N512 D4096 V64000 (train microbatch)",
              N=512, D=4096, V=64000, ignore_every=7, seed=75, path="yi-6b"),
+        # phase 13 (b): 4 x 2048 tokens
+        dict(name="yi-6b head N8192 D4096 V64000 (4 x 2048 step)", N=8192,
+             D=4096, V=64000, ignore_every=7, seed=77, path="yi-6b"),
     ]
     for case in ce_cases:    # every path's head is timed
         if case.get("path"):
@@ -1137,17 +1168,34 @@ GIB = 2 ** 30
 RECKON_LIMIT = 72 * GIB    # a run's reckoned peak must stay below this
 
 
+def _block_train(mem, lo: int, hi: int, *, remat: bool = True,
+                 **kw) -> int:
+    """``mem.block_train_bytes(lo, hi, **kw)`` in the run's mode: with
+    per-unit rematerialization (training's default) the block's units
+    hold their inputs (the output of the unit before, as ``lm_memory``
+    prices it) and, during one unit's recompute, that unit's activations
+    (the largest), in place of every unit's activations."""
+    b = mem.block_train_bytes(lo, hi, **kw)
+    if remat:
+        acts = [mem.units[k].activations for k in range(lo, hi)]
+        ins = sum(mem.units[k - 1].output if k else mem.embed.output
+                  for k in range(lo, hi))
+        b += ins + max(acts) - sum(acts)
+    return b
+
+
 def _reckon(cfg, decomps, clients: list, held: int) -> tuple:
     """A round's reckoned peak (bytes) and how it was reckoned: the
     parameters, the largest block's training memory (``lm_memory`` at the
     run's batch 4 x 256 tokens with one optimizer slot: its weights'
-    private copies, gradients and momentum, activations) and ``held``
-    payloads of a whole model (the engine keeps each cohort payload until
+    private copies, gradients and momentum, activations, each unit
+    rematerialized: :func:`_block_train`) and ``held`` payloads of a
+    whole model (the engine keeps each cohort payload until
     ``aggregate``)."""
     from repro_torch.core.memory_model import lm_memory
     mem = lm_memory(cfg, 4, 256)
     params = 4 * cfg.param_count()
-    block = max(mem.block_train_bytes(lo, hi, optimizer_slots=1)
+    block = max(_block_train(mem, lo, hi, optimizer_slots=1)
                 for k in clients for lo, hi in decomps[k].blocks)
     train = params + block + held * params
     merge = (held + 3) * params      # the state, every payload, the sum
@@ -1158,15 +1206,17 @@ def _reckon(cfg, decomps, clients: list, held: int) -> tuple:
         f"{held + 3} models")
 
 
-def _reckon_client(cfg, blocks: tuple, n_batches: int) -> tuple:
+def _reckon_client(cfg, blocks: tuple, n_batches: int,
+                   remat: bool = True) -> tuple:
     """A client update's reckoned peak (bytes), how it was reckoned, and
     each block's: the parameters, the block's training memory
     (``lm_memory`` at batch 4 x 256 with one optimizer slot: its
-    weights' private copies, gradients and momentum, activations and the
-    ``n_batches`` buffered prefix outputs) and the copies the blocks
-    before it trained and kept (their units, and the embed when the
-    first block starts at 0; the head is trained in place from block to
-    block, so it is counted once, in the block's training)."""
+    weights' private copies, gradients and momentum, activations in the
+    ``remat`` mode (:func:`_block_train`) and the ``n_batches`` buffered
+    prefix outputs) and the copies the blocks before it trained and kept
+    (their units, and the embed when the first block starts at 0; the
+    head is trained in place from block to block, so it is counted once,
+    in the block's training)."""
     from repro_torch.core.memory_model import lm_memory
     mem = lm_memory(cfg, 4, 256)
     params = mem.param_bytes()
@@ -1176,8 +1226,9 @@ def _reckon_client(cfg, blocks: tuple, n_batches: int) -> tuple:
                    for k in range(a, b))
         if j and blocks[0][0] == 0:
             kept += mem.embed.params
-        per_block.append(params + kept + mem.block_train_bytes(
-            lo, hi, optimizer_slots=1, n_batches=n_batches))
+        per_block.append(params + kept + _block_train(
+            mem, lo, hi, remat=remat, optimizer_slots=1,
+            n_batches=n_batches))
     return max(per_block), (
         f"{params / GIB:.2f} GiB parameters + the block's training + the "
         f"earlier blocks' trained copies; by block "
@@ -2262,8 +2313,17 @@ SERVE_RUNS = (
     ("qwen3-moe-235b-a22b", ("flash_attention",), None),
 )
 # depth cuts of the serving runs: qwen3-moe's 94 layers are 233 GB in
-# fp32; 4 layers (44.8 GB) fit the card beside the prefill
-SERVE_LAYERS = {"qwen3-moe-235b-a22b": 4}
+# fp32; 4 layers (44.8 GB) fit the card beside the prefill.  The others
+# serve half their published depth: the decode walks are host-paced
+# (~2.5 ms a layer a step on a slow host), and at full depth serving
+# took 161.6 s of a script that took 1216.8 s of its 1200 (one H100
+# 80GB HBM3 at 700 W, a slow host).  The margin: with this cut and
+# MAMBA2_LAYERS the whole script took 870.4–991.0 s on two hosts, and
+# one tree's time has moved ~23 % between hosts (991.0 and 1215.8 s),
+# which leaves 1200 s no room for full-depth serving (~+80 s)
+SERVE_LAYERS = {"yi-6b": 16, "h2o-danube-3-4b": 12, "minicpm-2b": 20,
+                "qwen2-vl-2b": 14, "mamba2-370m": 24, "rwkv6-7b": 16,
+                "zamba2-1.2b": 18, "qwen3-moe-235b-a22b": 4}
 SERVE_BATCH = 4
 PREFILL_TOKENS = 512         # the timed prefill: batch 4 x 512 tokens
 SERVE_PROMPT, SERVE_GEN = 64, 32   # the serve loop: 64-token prompts, 32 new
@@ -2469,7 +2529,8 @@ def _bounds(cfg, params, B: int, T: int, P: int, gen: int):
 
 def phase_serve_model(arch: str, prefill_kernels: tuple, decode_kernel,
                       device="cuda", layers=None) -> dict:
-    """Serve ``arch`` at every published width and depth on the card:
+    """Serve ``arch`` at every published width on the card, at its
+    published depth or cut to ``layers``:
     seeded init, one timed ``LM.prefill`` of 4 x 512 tokens (a VLM's
     256 vision embeddings and M-RoPE positions too) after an untimed
     one, then ``launch.serve.serve`` at batch 4 (64-token prompts, 32
@@ -2759,7 +2820,8 @@ def phase_serve_whisper(device="cuda") -> dict:
 
 
 def phase_serving() -> dict:
-    log("serving: every published width and depth, batch 4")
+    log("serving: every published width, half the published depth "
+        "(SERVE_LAYERS), batch 4")
     runs = {arch: phase_serve_model(arch, pk, dk,
                                     layers=SERVE_LAYERS.get(arch))
             for arch, pk, dk in SERVE_RUNS}
@@ -2771,8 +2833,16 @@ def phase_serving() -> dict:
 SYSTIME_ARCH = "mamba2-370m"
 # phases 8 (b) and 9 (c) run it at published widths cut to this many of
 # its 48 layers: at all 48 the script took 1259.4 s of its 1200 on a
-# slow host (phase 8 alone 330 s); phase 4 drives all 48
+# slow host (phase 8 alone 330 s); at 8 the async run's peak (5.98 GiB)
+# passed its reckoning (5.82 GiB: the merge's term), which holds at 24
+# (one H100 80GB HBM3 at 700 W)
 SYSTIME_LAYERS = 24
+# phase 4's mamba2-370m FeDepth and m-FeDepth rounds and phase 10's
+# mamba2-370m group and rounds run it cut to this many of its 48 layers:
+# with rematerialization and phase 13 the script took 1216.8 s of its
+# 1200 on a slow host at 48 (one H100 80GB HBM3 at 700 W).  The margin
+# is SERVE_LAYERS': all 48 layers (~+30 s) leave no room for that swing
+MAMBA2_LAYERS = 24
 # the reference tests' HEAVY fault plan (tests/test_faults.py)
 HEAVY = dict(seed=7, crash_rate=0.1, drop_rate=0.1, corrupt_rate=0.15,
              diverge_rate=0.1, slowdown_rate=0.1)
@@ -2991,16 +3061,16 @@ def phase_systime_images(data, smi: str) -> None:
 def _reckon_async(cfg, decomps, concurrency: int, buffer_size: int):
     """The async run's reckoned peak (bytes) and how: the larger of a
     dispatch's training (the state, the largest block's training memory
-    as in :func:`_reckon`, and the ``concurrency - 1`` parked plus
-    ``buffer_size - 1`` buffered payloads of a whole model) and the merge
-    (the state, ``concurrency + buffer_size - 1`` payloads, one cached
-    trained-mask per distinct decomposition, a soft mask per merged
-    result, the anchor's ones, the new state, and four of the largest
-    leaf for the per-leaf temporaries)."""
+    as in :func:`_reckon`, rematerialized, and the ``concurrency - 1``
+    parked plus ``buffer_size - 1`` buffered payloads of a whole model)
+    and the merge (the state, ``concurrency + buffer_size - 1`` payloads,
+    one cached trained-mask per distinct decomposition, a soft mask per
+    merged result, the anchor's ones, the new state, and four of the
+    largest leaf for the per-leaf temporaries)."""
     from repro_torch.core.memory_model import lm_memory
     mem = lm_memory(cfg, 4, 256)
     params = 4 * cfg.param_count()
-    block = max(mem.block_train_bytes(lo, hi, optimizer_slots=1)
+    block = max(_block_train(mem, lo, hi, optimizer_slots=1)
                 for d in decomps for lo, hi in d.blocks)
     masks = len({(d.blocks, d.skipped_prefix) for d in decomps})
     leaf = 4 * cfg.vocab_size * cfg.d_model
@@ -3622,7 +3692,8 @@ K1_K2 = ("chunked_cross_entropy", "flash_attention")
 STACKED_RUNS = (
     # (arch, layers, kernels that must launch, clients in the group):
     # each at every published width, phase 4's batches
-    ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan"), 4),
+    ("mamba2-370m", MAMBA2_LAYERS, ("chunked_cross_entropy", "mamba2_scan"),
+     4),
     ("rwkv6-7b", 4, ("chunked_cross_entropy", "rwkv6_scan"), 4),
     # cut from 4 clients: reckoned 80.2 GiB at 4, 62.0 at 3
     ("qwen2-7b", 4, K1_K2, 3),
@@ -3630,13 +3701,15 @@ STACKED_RUNS = (
 STACKED_BATCHES = 2      # batches of 4 x 256 tokens a client
 
 
-def _reckon_stacked(cfg, blocks: tuple, group: int) -> tuple:
+def _reckon_stacked(cfg, blocks: tuple, group: int,
+                    remat: bool = True) -> tuple:
     """A stacked group update's reckoned peak: the broadcast state's
     parameters, then ``group`` times one client's reckoning
-    (:func:`_reckon_client`: the stacked leaves, each block's clones,
-    momentum, gradients and activations all carry the client axis)."""
+    (:func:`_reckon_client` in the ``remat`` mode: the stacked leaves,
+    each block's clones, momentum, gradients and activations all carry
+    the client axis)."""
     from repro_torch.core.memory_model import lm_memory
-    one, _, _ = _reckon_client(cfg, blocks, STACKED_BATCHES)
+    one, _, _ = _reckon_client(cfg, blocks, STACKED_BATCHES, remat)
     params = lm_memory(cfg, 4, 256).param_bytes()
     return params + group * one, one + params
 
@@ -3656,8 +3729,12 @@ def _stacked_setup(arch: str, layers: int, group: int):
     data = build_seq_data(6, n_per_client=16, n_test=16,
                           vocab_size=cfg.vocab_size, seq_len=256, seed=0)
     ctx = build_lm_context(data, sim, cfg)
+    # chosen by the reckoning without remat, as before it: a safe bound
+    # on the rematerialized run (the stacked peaks sat up to 6.3 GiB above
+    # their reckonings, PERF.md section 5)
     fits = [d for d in ctx.decomps if len(d.blocks) >= 2
-            and _reckon_stacked(cfg, d.blocks, group)[0] <= RECKON_LIMIT]
+            and _reckon_stacked(cfg, d.blocks, group, remat=False)[0]
+            <= RECKON_LIMIT]
     if not fits:
         raise AssertionError(f"{arch}: no multi-block decomposition of a "
                              f"group of {group} fits {RECKON_LIMIT} B")
@@ -3684,12 +3761,15 @@ def phase_stacked_run(arch: str, layers: int, kernels: tuple, group: int,
     sequential ``client_update`` calls from the same state.  Each
     client's state within rtol 2e-4 / atol 2e-5 of its sequential twin;
     the stacked run's launches of each kernel the sequential run's over
-    the group size; both runs' reckoned peaks within RECKON_LIMIT.
-    Logs wall, peak, idle share and launches of both.  Returns the two
-    runs' (launches, shapes) for the kernel line."""
+    the group size; both runs' reckoned peaks within RECKON_LIMIT.  The
+    stacked update then runs under ``disable_remat()`` (its peak beside
+    its reckoning) and with remat once more, both warm, for remat's wall
+    and device time.  Logs wall, peak, idle share and launches of each.
+    Returns the (launches, shapes) of the sequential run and the stacked
+    runs with and without remat for the kernel line."""
     import torch
     from repro_torch.core import blockwise
-    from repro_torch.models import build
+    from repro_torch.models import build, common
     from repro_torch.tree import tree_leaves, tree_map
     cfg, dec, bpc = _stacked_setup(arch, layers, group)
     lm = build(cfg)
@@ -3725,15 +3805,19 @@ def phase_stacked_run(arch: str, layers: int, kernels: tuple, group: int,
     _held_to_reckoning("  sequential", seq_peak, one, gate=False)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    vec, vec_launches, vec_shapes, vec_wall, vec_busy = _profiled_count(
-        lambda: blockwise.client_update_batched(runner, params, dec, bpc,
-                                                **kw))
+    with _recompute_calls() as calls:
+        vec, vec_launches, vec_shapes, vec_wall, vec_busy = _profiled_count(
+            lambda: blockwise.client_update_batched(runner, params, dec,
+                                                    bpc, **kw))
     vec_peak = torch.cuda.max_memory_allocated()
     log(f"  stacked: one group update {vec_wall:.2f} s (x"
         f"{seq_wall / vec_wall:.2f} the sequential), peak "
         f"{vec_peak / GIB:.2f} GiB, idle share "
-        f"{1 - vec_busy / vec_wall:.4f}, launches {vec_launches}")
+        f"{1 - vec_busy / vec_wall:.4f}, launches {vec_launches}; "
+        f"{calls[0]} units rematerialized under vmap (phase 13 (d))")
     _held_to_reckoning("  stacked", vec_peak, reckoned, gate=False)
+    if not calls[0]:
+        raise AssertionError(f"stacked {name}: no unit rematerialized")
     worst = 0.0
     for c in range(group):
         twin = tree_map(lambda t: t.to("cuda"), seq_host[c])
@@ -3753,16 +3837,61 @@ def phase_stacked_run(arch: str, layers: int, kernels: tuple, group: int,
         raise AssertionError(f"stacked {name}: launches {per_group} (not "
                              f"one a group: {bad}; others {others}), moved "
                              f"{moved}")
-    del vec, seq_host, params
+    del vec, seq_host
+    # without remat, then with it once more: both warm (the first stacked
+    # run paid the group's first calls), for what remat costs and saves on
+    # the stacked path (phase 13 (d))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with common.disable_remat():
+        off, off_launches, off_shapes, off_wall, off_busy = _profiled_count(
+            lambda: blockwise.client_update_batched(runner, params, dec,
+                                                    bpc, **kw))
+    off_peak = torch.cuda.max_memory_allocated()
+    del off
+    _, _, _, on_wall, on_busy = _profiled_count(
+        lambda: blockwise.client_update_batched(runner, params, dec, bpc,
+                                                **kw))
+    log(f"  stacked, no remat: one group update {off_wall:.3f} s (device "
+        f"busy {off_busy:.3f} s), peak {off_peak / GIB:.2f} GiB, launches "
+        f"{off_launches}; remat again {on_wall:.3f} s ({on_busy:.3f} s): "
+        f"remat x{on_wall / off_wall:.2f} the wall, x{on_busy / off_busy:.2f}"
+        f" the device time, {(vec_peak - off_peak) / GIB:+.2f} GiB the peak "
+        f"({smi})")
+    _held_to_reckoning("  stacked, no remat", off_peak, _reckon_stacked(
+        cfg, dec.blocks, group, remat=False)[0], gate=False)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return {(arch, f"stacked sequential twin, {group} clients"):
             (seq_launches, seq_shapes),
-            (arch, f"stacked group of {group}"): (vec_launches, vec_shapes)}
+            (arch, f"stacked group of {group}"): (vec_launches, vec_shapes),
+            (arch, f"stacked group of {group}, no remat"):
+            (off_launches, off_shapes)}
+
+
+@contextlib.contextmanager
+def _recompute_calls():
+    """Count the units rematerialized under a functorch transform (the
+    stacked path's ``vmap``: ``models.common._Recompute``) while the
+    block runs; yields the one-element count."""
+    from repro_torch.models import common
+    calls, apply = [0], common._Recompute.apply
+
+    def counted(*args):
+        calls[0] += 1
+        return apply(*args)
+
+    common._Recompute.apply = counted
+    try:
+        yield calls
+    finally:
+        common._Recompute.apply = apply
 
 
 def phase_stacked_rounds(smi: str) -> dict:
-    """One FeDepth round of mamba2-370m (48 layers) under
+    """One FeDepth round of mamba2-370m (MAMBA2_LAYERS of 48) under
     ``RoundEngine(scheduler="vectorized")`` and one under
     ``ShardedScheduler(mesh=["cuda:0"])``, every client of 6 (``fair``:
     two pairs share a decomposition, so two groups of 2 stack), under
@@ -3776,7 +3905,8 @@ def phase_stacked_rounds(smi: str) -> dict:
     from repro_torch.fl.registry import get_strategy
     from repro_torch.fl.scale import ShardedScheduler
     from repro_torch.fl.seq import build_lm_context, build_seq_data
-    cfg = get_config("mamba2-370m")
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              num_layers=MAMBA2_LAYERS)
     sim = SimConfig(rounds=1, participation=1.0, lr=0.05, momentum=0.9,
                     local_steps=1, batch_size=4, scenario="fair", seed=0)
     data = build_seq_data(6, n_per_client=4 * STACKED_BATCHES, n_test=16,
@@ -3852,11 +3982,14 @@ def _eager_acts(cfg, B: int, T: int, device) -> tuple:
     """The activations eager autograd holds for the backward of one depth
     unit and of the head, at batch B x T and the config's widths: counted
     from the saved tensors' shapes (:func:`_saved_bytes`) on a one-unit
-    model of those widths.  ``lm_memory`` prices fewer (a subset of what
-    eager autograd saves); the reckonings log both."""
+    model of those widths, the unit run without rematerialization (a
+    checkpoint's own hooks would hide its saved tensors from the count;
+    a rematerialized unit holds these during its recompute).
+    ``lm_memory`` prices fewer (a subset of what eager autograd saves);
+    the reckonings log both."""
     import torch
     from repro_torch.core import blockwise
-    from repro_torch.models import build
+    from repro_torch.models import build, common
     from repro_torch.tree import tree_leaves
     one = dataclasses.replace(cfg, num_layers=cfg.moe_every)
     lm = build(one)
@@ -3872,8 +4005,9 @@ def _eager_acts(cfg, B: int, T: int, device) -> tuple:
     for t in leaves:
         t.requires_grad_(True)
     try:
-        unit = _saved_bytes(lambda: runner.apply_units(params, z, 0, 1),
-                            leaves)
+        with common.disable_remat():
+            unit = _saved_bytes(lambda: runner.apply_units(params, z, 0, 1),
+                                leaves)
         head = _saved_bytes(lambda: runner.head_loss(params, z, batch, 0),
                             leaves)
     finally:
@@ -3883,19 +4017,39 @@ def _eager_acts(cfg, B: int, T: int, device) -> tuple:
     return unit, head
 
 
-def _reckon_train(cfg, B: int, T: int, device, accum: int = 1) -> tuple:
+def _held_acts(n_units: int, acts: tuple, unit_in: int,
+               remat: bool) -> tuple:
+    """The activations ``n_units`` units and the head hold for the
+    backward (``acts``: :func:`_eager_acts`), and how: every unit's
+    without remat; with it, each unit's input (``unit_in`` bytes) and
+    one unit's during its recompute."""
+    unit, head = acts
+    if remat:
+        return n_units * unit_in + unit + head, (
+            f"remat: {n_units} x {unit_in / 2**20:.1f} MiB unit inputs + "
+            f"{unit / 2**20:.1f} MiB one unit's recompute + "
+            f"{head / 2**20:.1f} MiB the head")
+    return n_units * unit + head, (
+        f"no remat: {n_units} x {unit / 2**20:.1f} MiB a unit + "
+        f"{head / 2**20:.1f} MiB the head")
+
+
+def _reckon_train(cfg, B: int, T: int, device, accum: int = 1,
+                  remat: bool = True, acts: tuple = None) -> tuple:
     """A standard step's reckoned peak over what it holds at entry: its
     gradients (the fp32 parameters once more) and the activations one
-    microbatch holds for the backward (:func:`_eager_acts`, every unit
-    and the head), the CE backward's chunk (:func:`_ce_chunk`), plus,
-    with accumulation, one leaf's fresh gradient before it is summed
-    into ``.grad`` (the largest leaf, the (V, D) table); and the whole
-    run's: the parameters and momentum besides.  Returns (step, run,
-    how)."""
+    microbatch holds for the backward in the ``remat`` mode
+    (:func:`_held_acts` over :func:`_eager_acts`, or the given
+    ``acts``), the CE backward's chunk (:func:`_ce_chunk`), plus, with
+    accumulation, one leaf's fresh gradient before it is summed into
+    ``.grad`` (the largest leaf, the (V, D) table); and the whole run's:
+    the parameters and momentum besides.  Returns (step, run, how)."""
     from repro_torch.core.memory_model import lm_memory
-    unit, head = _eager_acts(cfg, B // accum, T, device)
+    if acts is None:
+        acts = _eager_acts(cfg, B // accum, T, device)
     n_units = cfg.num_layers // cfg.moe_every
-    acts = n_units * unit + head
+    acts, held = _held_acts(n_units, acts, 4 * B // accum * T * cfg.d_model,
+                            remat)
     mem = lm_memory(cfg, B // accum, T, act_bytes=4)
     priced = (sum(u.activations for u in mem.units) + mem.embed.activations
               + mem.head.activations)
@@ -3906,9 +4060,8 @@ def _reckon_train(cfg, B: int, T: int, device, accum: int = 1) -> tuple:
     return step, 2 * params + step, (
         f"{params / GIB:.2f} GiB parameters, as many of momentum and of "
         f"gradients, {acts / GIB:.2f} GiB activations at {B // accum} x {T} "
-        f"({n_units} x {unit / 2**20:.1f} MiB a unit + {head / 2**20:.1f} "
-        f"MiB the head, counted; lm_memory prices {priced / GIB:.2f} GiB in "
-        f"fp32), {ce / GIB:.2f} GiB the CE backward's chunk"
+        f"({held}, counted; lm_memory prices {priced / GIB:.2f} GiB without "
+        f"remat in fp32), {ce / GIB:.2f} GiB the CE backward's chunk"
         + (f", {leaf / GIB:.2f} GiB a leaf's fresh gradient" if leaf else ""))
 
 
@@ -3924,21 +4077,20 @@ def _reckon_block(cfg, mem, lo: int, hi: int, acts: tuple,
     """A FeDepth block step's reckoned peak over what it holds at entry
     (the parameters and every block's momentum so far): the block's
     gradients (its split: the units, the tied head and the final norm),
-    the activations its units and the head hold for the backward
-    (``acts``: :func:`_eager_acts`) and the CE backward's chunk over
-    ``rows`` tokens.  Returns (bytes, how)."""
-    unit, head = acts
+    the activations its units and the head hold for the backward with
+    remat (:func:`_held_acts` over ``acts``, from
+    :func:`_eager_acts`) and the CE backward's chunk over ``rows``
+    tokens.  Returns (bytes, how)."""
     split = 4 * (cfg.vocab_size * cfg.d_model + cfg.d_model) + sum(
         mem.units[k].params for k in range(lo, hi))
-    held = (hi - lo) * unit + head
+    held, how = _held_acts(hi - lo, acts, 4 * rows * cfg.d_model, True)
     priced = (sum(mem.units[k].activations for k in range(lo, hi))
               + mem.head.activations)
     ce = _ce_chunk(cfg, rows)
     return split + held + ce, (
         f"{split / GIB:.2f} GiB gradients + {held / GIB:.2f} GiB activations "
-        f"({hi - lo} x {unit / 2**20:.1f} MiB + {head / 2**20:.1f} MiB, "
-        f"counted; lm_memory prices {priced / GIB:.2f} GiB in fp32) + "
-        f"{ce / GIB:.2f} GiB the CE backward's chunk")
+        f"({how}, counted; lm_memory prices {priced / GIB:.2f} GiB without "
+        f"remat in fp32) + {ce / GIB:.2f} GiB the CE backward's chunk")
 
 
 def _step_peaks(kind: str):
@@ -4583,12 +4735,20 @@ def phase_moe_ep(smi: str, device="cuda") -> None:
 def phase_dryrun(smi: str) -> None:
     """(c) ``launch.dryrun.dryrun_one("yi-6b", "train_4k")``: the 16 x 16
     fake mesh on this machine's PyTorch, costed from depth 1 and 2 at the
-    step's accumulation; its per-device terms at the H100's constants
+    step's accumulation, with per-unit rematerialization (the default)
+    and without; its per-device terms at the H100's constants
     (``roofline.hw``)."""
     from repro_torch.launch import dryrun
+    for no_remat in (False, True):
+        _dryrun_one(dryrun, no_remat, smi)
+
+
+def _dryrun_one(dryrun, no_remat: bool, smi: str) -> None:
     t0 = time.perf_counter()
-    rec = dryrun.dryrun_one(TRAIN_ARCH, "train_4k", verbose=False)
-    log(f"dry run (c): {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+    rec = dryrun.dryrun_one(TRAIN_ARCH, "train_4k", no_remat=no_remat,
+                            verbose=False)
+    log(f"dry run (c), {'no remat' if no_remat else 'remat'}: "
+        f"{rec['arch']} x {rec['shape']} x {rec['mesh']} "
         f"({rec['chips']} ranks, accumulation {rec['accum_steps']}) in "
         f"{time.perf_counter() - t0:.1f} s: per device "
         f"{rec['flops_per_device']:.4e} FLOPs, "
@@ -4621,14 +4781,218 @@ def phase_sharded(smi: str, device="cuda") -> dict:
     return by_run
 
 
+# --------------------------------------------------------------- phase 13
+REMAT_TOKENS = (256, 2048)   # (a), (b): yi-6b's 4-layer step at 4 x T
+REMAT_CLIENTS = (
+    # (c): (arch, ``depth_scaled`` units, kernels that must launch);
+    # published widths, depth cut to 2 units, or 1 where the update's CPU
+    # twin is slow (rwkv6-7b 31.7 s and zamba2-1.2b 27.4 s at 2, on an
+    # H100 80GB HBM3 machine's host) or large (the MoE: 14.9 GB), to keep the script's time
+    ("mamba2-370m", 2, ("chunked_cross_entropy", "mamba2_scan")),
+    ("rwkv6-7b", 1, ("chunked_cross_entropy", "rwkv6_scan")),
+    ("zamba2-1.2b", 1, ("chunked_cross_entropy", "flash_attention",
+                        "mamba2_scan")),
+    # one encoder and one decoder layer: 2 depth units
+    ("whisper-small", 1, ("chunked_cross_entropy", "flash_attention")),
+    ("qwen3-moe-235b-a22b", 1, ("chunked_cross_entropy", "flash_attention")),
+)
+REMAT_ATOL = 1e-4            # (c): the card's update against the CPU's
+
+
+def _remat_step(lm, params, batch, remat: bool) -> tuple:
+    """One ``make_train_step`` (lr 3e-3, clip 1.0) from a copy of
+    ``params``, remat on or off: ((params, momentum, metrics), launches,
+    seconds, shapes, (entry, peak))."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import common
+    from repro_torch.tree import tree_map
+    p = tree_map(torch.clone, params)
+    v = tree_map(torch.zeros_like, params)
+    records, undo = _step_peaks("train")
+    ctx = contextlib.nullcontext() if remat else common.disable_remat()
+    try:
+        step = steps.make_train_step(lm, lr=3e-3)
+        with ctx:
+            out, launches, secs, shapes = _counted(lambda: step(p, v, batch))
+    finally:
+        undo()
+    (entry, peak), = records
+    return out, launches, secs, shapes, (entry, peak)
+
+
+def phase_remat_step(smi: str, device="cuda") -> dict:
+    """(a), (b): ``make_train_step`` on yi-6b at published widths cut to 4
+    layers, batch 4 x 256 and 4 x 2048, from one set of parameters, with
+    per-unit rematerialization and without, under deterministic
+    algorithms: parameters, momentum, loss and gnorm bitwise between the
+    modes; each mode's warm step seconds and peak beside its own
+    reckoning (:func:`_reckon_train`), each peak within it and
+    RECKON_LIMIT; the recompute launches K2 again (K1 not)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_CUT)
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    B, by_run = 4, {}
+    for T in REMAT_TOKENS:
+        batch = {k: torch.from_numpy(a).to(device) for k, a in next(
+            TokenPipeline(cfg.vocab_size, T, B, seed=0).batches()).items()}
+        acts = _eager_acts(cfg, B, T, device)
+        log(f"remat ({'a' if T == REMAT_TOKENS[0] else 'b'}): {cfg.name}, "
+            f"{TRAIN_CUT} layers (cut from {full.num_layers}), batch {B} x "
+            f"{T} ({smi})")
+        res = {}
+        with deterministic():
+            for remat in (True, False):
+                step_r, _, how = _reckon_train(cfg, B, T, device,
+                                               remat=remat, acts=acts)
+                runs = [_remat_step(lm, params, batch, remat)
+                        for _ in range(2)]   # the second warm
+                out, launches, secs, shapes, (entry, peak) = runs[1]
+                mode = "remat" if remat else "no remat"
+                log(f"  {mode}: loss {float(out[2]['loss']):.6f}, gnorm "
+                    f"{float(out[2]['gnorm']):.4f}, warm {secs:.4f} s (first "
+                    f"{runs[0][2]:.4f} s), launches {launches}")
+                _rates(mode, [secs], B * T, 6.0 * cfg.param_count() * B * T,
+                       smi)
+                _held(f"  {mode} step (reckoned: {how}; entry "
+                      f"{entry / GIB:.2f} GiB)", peak, entry + step_r)
+                res[remat] = out, launches
+                by_run[TRAIN_ARCH, f"remat step 4 x {T}, {mode}"] = (
+                    launches, shapes)
+                del runs
+        (on, n_on), (off, n_off) = res[True], res[False]
+        diff = _first_difference(on[:2], off[:2])
+        same = diff is None and all(torch.equal(on[2][k], off[2][k])
+                                    for k in ("loss", "gnorm"))
+        relaunched = (n_on["flash_attention"] == 2 * n_off["flash_attention"]
+                      and n_on["chunked_cross_entropy"]
+                      == n_off["chunked_cross_entropy"])
+        log(f"  remat vs no remat: parameters, momentum, loss and gnorm "
+            f"bitwise {same}; K2 {n_on['flash_attention']} vs "
+            f"{n_off['flash_attention']} launches (the recompute's), K1 "
+            f"{n_on['chunked_cross_entropy']} vs "
+            f"{n_off['chunked_cross_entropy']} "
+            f"{'ok' if same and relaunched else 'FAIL'}")
+        if not (same and relaunched):
+            raise AssertionError(f"remat step 4 x {T}: first difference "
+                                 f"{diff}, launches {n_on} vs {n_off}")
+        del res, on, off
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    return by_run
+
+
+def _remat_client_inputs(arch: str, units: int, device):
+    """(lm, params on the card, blocks, one batch) for (c): ``arch`` at
+    published widths cut to ``units`` depth units, blocks of one unit
+    each, one batch of 4 x 256 tokens (whisper's with 1500 stubbed
+    frames)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import depth_scaled
+    from repro_torch.models import build
+    cfg = depth_scaled(get_config(arch), units)
+    lm = build(cfg)
+    params = lm.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(31)
+    if cfg.is_encoder_decoder:
+        batch, = _whisper_batches(cfg, 1, gen, device)
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (4, 257), generator=gen,
+                             device=device)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n = lm.num_depth_units
+    return lm, params, tuple((k, k + 1) for k in range(n)), batch
+
+
+def phase_remat_clients(smi: str, device="cuda") -> dict:
+    """(c) One FeDepth ``client_update`` (lr 0.05, momentum 0.9) of each
+    family whose unit body is rematerialized, at published widths cut to
+    REMAT_CLIENTS' depth, remat on: within REMAT_ATOL of the same update
+    on the CPU (each from the card's parameters and batch), its kernels
+    launched; then the card's update with remat off: the recompute
+    launches K2, K3 or K4 again for each trained unit, K1 (the head) as
+    often."""
+    import torch
+    from repro_torch.core import blockwise
+    from repro_torch.core.decomposition import Decomposition
+    from repro_torch.models import common
+    from repro_torch.tree import tree_map
+    by_run = {}
+    for arch, units, kernels in REMAT_CLIENTS:
+        lm, params, blocks, batch = _remat_client_inputs(arch, units, device)
+        runner = blockwise.lm_runner(lm)
+        dec = Decomposition(blocks, 0, 0)
+        kw = dict(lr=0.05, momentum=0.9)
+        torch.cuda.reset_peak_memory_stats()
+        out, n_on, secs, shapes = _counted(
+            lambda: blockwise.client_update(runner, params, dec, [batch],
+                                            **kw))
+        peak = torch.cuda.max_memory_allocated()
+        by_run[arch, "remat client update"] = (n_on, shapes)
+        with common.disable_remat():
+            off, n_off, secs_off, sh_off = _counted(
+                lambda: blockwise.client_update(runner, params, dec,
+                                                [batch], **kw))
+        by_run[arch, "client update, no remat"] = (n_off, sh_off)
+        del off
+        t0 = time.perf_counter()
+        cpu = blockwise.client_update(
+            runner, tree_map(lambda t: t.cpu(), params), dec,
+            [tree_map(lambda t: t.cpu(), batch)], **kw)
+        cpu_s = time.perf_counter() - t0
+        # held on the card: the MoE's CPU update alone takes ~60 GB of host
+        worst = _states_within(out, tree_map(lambda t: t.to(device), cpu),
+                               rtol=0, atol=REMAT_ATOL)
+        scans = [k for k in kernels if k != "chunked_cross_entropy"]
+        relaunched = (all(n_on[k] > n_off[k] for k in scans)
+                      and n_on["chunked_cross_entropy"]
+                      == n_off["chunked_cross_entropy"])
+        missing = [k for k in kernels if n_on[k] <= 0]
+        log(f"remat (c) {lm.cfg.name}, {lm.num_depth_units} depth units, "
+            f"blocks {blocks}: {secs:.2f} s (no remat {secs_off:.2f} s), peak "
+            f"{peak / GIB:.2f} GiB, launches {n_on} (no remat {n_off}); "
+            f"against the CPU ({cpu_s:.1f} s) max abs diff {worst:.3e} (atol "
+            f"{REMAT_ATOL:g}) {'ok' if relaunched and not missing else 'FAIL'}"
+            f" ({smi})")
+        if missing or not relaunched:
+            raise AssertionError(f"remat {arch}: not launched {missing}, "
+                                 f"launches {n_on} against no remat "
+                                 f"{n_off}")
+        del out, cpu, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_run
+
+
+def phase_remat(smi: str, device="cuda") -> dict:
+    """Phase 13: per-unit rematerialization."""
+    t0 = time.perf_counter()
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    by_run = phase_remat_step(smi, device)
+    by_run.update(phase_remat_clients(smi, device))
+    log(f"phase 13 (per-unit rematerialization): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return by_run
+
+
 PATHS = (
     # (arch, layers, kernels that must launch on the path, method)
     ("qwen2-7b", 4, K1_K2, "fedepth"),
-    ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan"), "fedepth"),
+    ("mamba2-370m", MAMBA2_LAYERS, ("chunked_cross_entropy", "mamba2_scan"),
+     "fedepth"),
     ("rwkv6-7b", 4, ("chunked_cross_entropy", "rwkv6_scan"), "fedepth"),
     ("qwen2-7b", 4, K1_K2, "depthfl"),
     ("zamba2-1.2b", 38, K1_K2 + ("mamba2_scan",), "fedepth"),
-    ("mamba2-370m", 48, ("chunked_cross_entropy", "mamba2_scan"),
+    ("mamba2-370m", MAMBA2_LAYERS, ("chunked_cross_entropy", "mamba2_scan"),
      "m-fedepth"),
     ("h2o-danube-3-4b", 4, K1_K2, "fedepth"),
     ("minicpm-2b", 4, K1_K2, "fedepth"),
@@ -4738,6 +5102,7 @@ def main() -> int:
     by_run.update(phase_stacked(smi))
     by_run.update(phase_train(smi))
     by_run.update(phase_sharded(smi))
+    by_run.update(phase_remat(smi))
     kernels = [dict(name=name, **KERNEL_META[name], **numbers[name])
                for name in KERNEL_META]
     attribute_launches(kernels, checked, by_run)

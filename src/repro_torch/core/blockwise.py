@@ -37,6 +37,13 @@ momentum update on the stacked leaves outside it.  It covers every
 runner: the image runners (ResNet, ViT) and each LM family, whose
 kernels (K1–K4) batch over the client axis through the ``vmap`` rules of
 ``kernels/ops.py``, one launch a group.
+
+Per-unit rematerialization: an LM runner's ``apply_units`` runs its
+units through ``LM.apply_range`` with the models' default ``remat=True``,
+as the reference's block steps do; the frozen prefix runs without grad,
+where it changes nothing.  On the stacked path the rematerialized units
+run under ``vmap`` through ``models.common._Recompute``.  The image
+runners (ResNet, ViT) have no rematerialization, as in the reference.
 """
 from __future__ import annotations
 

@@ -229,8 +229,12 @@ def rwkv6_scan(r: torch.Tensor,      # (B, T, H, D) receptance
     rf, kf, vf = r.to(ct), k.to(ct), v.to(ct)
     decay = torch.exp(-torch.exp(w.to(ct)))
     uf = _per_row(u.to(ct), 2, Bsz)[..., None]                  # (1|B,H,D,1)
+    # a copy of the initial state, never an alias of the argument: under
+    # vmap of a vjp (the stacked path's rematerialized units) an aliased
+    # zero state made inside the transform fails functorch's internal
+    # assert in the backward
     S = (torch.zeros(Bsz, H, D, D, device=r.device, dtype=ct)
-         if initial_state is None else initial_state.to(ct))
+         if initial_state is None else initial_state.to(ct, copy=True))
     ys = []
     for t in range(T):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]         # (B,H,D,D)

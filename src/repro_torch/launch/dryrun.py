@@ -21,11 +21,12 @@ device type is "cuda" (no card is needed for a fake world): on a "cpu"
 mesh DTensor lowers an all-to-all to an all-gather plus a chunk, which
 is not what the cards would issue.
 
-The port has no per-unit rematerialization (``models/transformer.py``;
-ROADMAP item 11), so the step is costed as the port runs it, without
-remat: ``--no-remat`` is accepted and is the only mode.  The kernels take
-their plain versions on ``meta`` tensors, as the reference's costing
-forces its ``ref`` kernels.
+As in the reference, the step is costed with per-unit rematerialization
+(``models.common.maybe_checkpoint``), as training runs it: each unit's
+forward runs again in the backward, and the counting mode sees it there.
+``--no-remat`` costs it without (``common.disable_remat``).  The
+kernels take their plain versions on ``meta`` tensors, as the
+reference's costing forces its ``ref`` kernels.
 """
 from __future__ import annotations
 
@@ -142,9 +143,48 @@ def _local_bytes(tree) -> int:
                and common.is_dtensor(t))
 
 
+def _serving_step(lm, shape, decode_tokens: int):
+    """``steps.step_for_shape``'s serving step with the model run under
+    ``no_grad``, not ``LM``'s ``inference_mode`` (ROADMAP fault 21).
+    Under inference mode a composite op (``aten.matmul``) reaches DTensor
+    whole, not decomposed: DTensor's first propagation of it runs the
+    decomposition on global shapes beneath
+    :class:`~repro_torch.roofline.analysis.DeviceCounts`, which counts it
+    as device work, and the local op then comes back as ``aten.matmul``,
+    which has no FLOP formula: a first count read the global products,
+    and every later one, the propagation cached, read 0 FLOPs.  Under
+    ``no_grad`` the op is decomposed before DTensor sees it, as in a
+    train step, and each count is the local ops'."""
+    module, cfg = lm.module, lm.cfg
+
+    def decode(params, tok, cache, idx, mrope_positions=None):
+        return module.decode_step(params, cfg, tok, cache, int(idx),
+                                  mrope_positions=mrope_positions)
+
+    @torch.no_grad()
+    def step(params, batch):
+        if shape.mode == "prefill":
+            return module.prefill(params, cfg, batch)
+        if decode_tokens == 1:
+            return decode(params, batch["tokens"], batch["cache"],
+                          batch["cache_index"],
+                          mrope_positions=batch.get("mrope_positions"))
+        # steps.make_multi_decode_step: greedy feedback
+        cache, idx, tok = batch["cache"], int(batch["cache_index"]), \
+            batch["tokens"]
+        out = []
+        for i in range(decode_tokens):
+            logits, cache = decode(params, tok, cache, idx + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            out.append(logits)
+        return torch.stack(out), cache
+
+    return step
+
+
 def _count_step(cfg, shape, mesh, *, fsdp=None, accum_steps=1,
                 fedepth_block=None, buffered_z=False, decode_tokens=1,
-                ws_decode=False, moe_ep=False) -> dict:
+                ws_decode=False, moe_ep=False, no_remat=False) -> dict:
     """One step of ``cfg`` at ``shape`` on meta DTensors, counted per
     device: {"flops", "bytes", "collectives", "collective_calls"}."""
     from torch.distributed.tensor import DTensor
@@ -153,13 +193,7 @@ def _count_step(cfg, shape, mesh, *, fsdp=None, accum_steps=1,
     lm = build(cfg)
     params_shape = steps.abstract_params(lm)
     pspecs = sharding.param_specs(cfg, params_shape, mesh, fsdp=fsdp)
-    # serving steps run under inference mode (``LM.prefill`` /
-    # ``decode_step``), and a DTensor made outside it cannot be viewed
-    # (the cache's layers) inside it: make the serving inputs there too
-    made = (contextlib.nullcontext() if shape.mode == "train"
-            else torch.inference_mode())
-    with made:
-        params = sharding.distribute(params_shape, pspecs, mesh)
+    params = sharding.distribute(params_shape, pspecs, mesh)
     specs = input_specs(cfg, shape)
     bspecs = sharding.batch_specs(cfg, shape, mesh)
     if buffered_z and shape.mode == "train":
@@ -174,19 +208,22 @@ def _count_step(cfg, shape, mesh, *, fsdp=None, accum_steps=1,
         bspecs.pop("tokens", None)
         bspecs["z_in"] = (sharding._batch_axis(sharding.axis_sizes(mesh)),
                           None, None)
-    with made:
-        batch = _meta_batch(cfg, shape, specs, bspecs, mesh)
+    batch = _meta_batch(cfg, shape, specs, bspecs, mesh)
     micro = sharding.to_named(bspecs, mesh) if accum_steps > 1 else None
-    step_fn, needs_opt = steps.step_for_shape(
-        lm, shape, fedepth_block=fedepth_block, accum_steps=accum_steps,
-        grad_shardings=sharding.to_named(pspecs, mesh),
-        microbatch_shardings=micro, buffered_z=buffered_z,
-        decode_tokens=decode_tokens)
+    if shape.mode == "train":
+        step_fn, needs_opt = steps.step_for_shape(
+            lm, shape, fedepth_block=fedepth_block, accum_steps=accum_steps,
+            grad_shardings=sharding.to_named(pspecs, mesh),
+            microbatch_shardings=micro, buffered_z=buffered_z)
+    else:
+        step_fn, needs_opt = _serving_step(lm, shape, decode_tokens), False
     ws_ctx = common.weight_stationary_decode() if ws_decode \
         else contextlib.nullcontext()
     ep_ctx = common.ep_moe() if moe_ep else contextlib.nullcontext()
-    counts, comm = analysis.DeviceCounts(), CommDebugMode()
-    with common.mesh_context(mesh), ws_ctx, ep_ctx:
+    remat_ctx = common.disable_remat() if no_remat \
+        else contextlib.nullcontext()
+    counts, comm = analysis.DeviceCounts(host_ops=False), CommDebugMode()
+    with common.mesh_context(mesh), ws_ctx, ep_ctx, remat_ctx:
         if needs_opt:
             if fedepth_block is not None:
                 # momentum exists only for the trained block
@@ -211,7 +248,7 @@ def _count_step(cfg, shape, mesh, *, fsdp=None, accum_steps=1,
 
 
 def costing_extrapolate(cfg, shape, mesh, fsdp=None, accum_steps=1,
-                        decode_tokens=1) -> dict:
+                        no_remat=False, decode_tokens=1) -> dict:
     """Depth-1/depth-2 linear extrapolation of per-device cost terms:
     cost(U) = c1 + (U-1)*(c2-c1), each cell counted at ``accum_steps``
     microbatches, as the step runs.  The reference needs it because XLA's
@@ -223,10 +260,9 @@ def costing_extrapolate(cfg, shape, mesh, fsdp=None, accum_steps=1,
     threshold)."""
     U = depth_units(cfg)
     fsdp = sharding.needs_fsdp(cfg) if fsdp is None else fsdp
-    c1 = _count_step(depth_scaled(cfg, 1), shape, mesh, fsdp=fsdp,
-                     accum_steps=accum_steps, decode_tokens=decode_tokens)
-    c2 = _count_step(depth_scaled(cfg, 2), shape, mesh, fsdp=fsdp,
-                     accum_steps=accum_steps, decode_tokens=decode_tokens)
+    c1, c2 = (_count_step(depth_scaled(cfg, n), shape, mesh, fsdp=fsdp,
+                          accum_steps=accum_steps, no_remat=no_remat,
+                          decode_tokens=decode_tokens) for n in (1, 2))
     f1, f2, b1, b2 = c1["flops"], c2["flops"], c1["bytes"], c2["bytes"]
     flops = f1 + (U - 1) * (f2 - f1)
     byts = b1 + (U - 1) * (b2 - b1)
@@ -261,7 +297,7 @@ def _argument_bytes(cfg, shape, mesh, fsdp=None, fedepth_block=None
 
 def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                fedepth_block=None, accum_steps=None, costing: bool = True,
-               fsdp=None, force_window: int = 0,
+               fsdp=None, no_remat: bool = False, force_window: int = 0,
                buffered_z: bool = False, ws_decode: bool = False,
                decode_tokens: int = 1, moe_ep: bool = False,
                full_count: bool = False, verbose: bool = True) -> dict:
@@ -298,10 +334,12 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                                  fedepth_block=fedepth_block,
                                  buffered_z=buffered_z,
                                  decode_tokens=decode_tokens,
-                                 ws_decode=ws_decode, moe_ep=moe_ep)
+                                 ws_decode=ws_decode, moe_ep=moe_ep,
+                                 no_remat=no_remat)
         t_count = time.time() - t0
         counts = (costing_extrapolate(cfg, shape, mesh, fsdp=fsdp,
                                       accum_steps=accum_steps,
+                                      no_remat=no_remat,
                                       decode_tokens=decode_tokens)
                   if extrapolate else direct)
         args_bytes = _argument_bytes(cfg, shape, mesh, fsdp, fedepth_block)
@@ -345,8 +383,7 @@ def main(argv=None):
     ap.add_argument("--no-fsdp", action="store_true",
                     help="force pure-TP sharding (perf variant for decode)")
     ap.add_argument("--no-remat", action="store_true",
-                    help="no per-unit rematerialization (the port has "
-                         "none: the only mode)")
+                    help="disable per-unit rematerialization")
     ap.add_argument("--moe-ep", action="store_true",
                     help="explicit all-to-all expert parallelism")
     ap.add_argument("--decode-tokens", type=int, default=1,
@@ -391,6 +428,7 @@ def main(argv=None):
                                   fedepth_block=fb,
                                   accum_steps=args.accum,
                                   fsdp=(False if args.no_fsdp else None),
+                                  no_remat=args.no_remat,
                                   force_window=args.force_window,
                                   buffered_z=args.fedepth_buffered,
                                   ws_decode=args.ws_decode,

@@ -17,9 +17,12 @@ is ``torch._foreach_*`` over the leaves with the clip scale a 0-d device
 tensor: no host sync and no tree-sized temporary inside a step.  The
 returned loss and metrics are 0-d device tensors.
 
-As in the reference, the steps inline their SGD rather than call
-``train/optim.py``.  The reference's ``kernel_force`` is gone: the
-tensors' device picks the route (``kernels/ops.py``).
+As in the reference, the train and block steps run each depth unit
+rematerialized (the models' ``remat=True`` default,
+``models.common.maybe_checkpoint``; ``common.disable_remat()`` turns it
+off), and serving runs without; and the steps inline their SGD rather
+than call ``train/optim.py``.  The reference's ``kernel_force`` is gone:
+the tensors' device picks the route (``kernels/ops.py``).
 
 **Sharded steps.**  Parameters laid out as DTensors by
 ``launch.sharding.distribute`` run through the same steps: the update

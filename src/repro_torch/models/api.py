@@ -77,18 +77,24 @@ class LM:
             return cfg.encoder_layers + cfg.num_layers
         return cfg.num_layers // cfg.moe_every
 
-    def apply_range(self, params, x, lo: int, hi: int):
-        """Depth units [lo, hi) over hidden states x -> (x, aux)."""
+    def apply_range(self, params, x, lo: int, hi: int, *,
+                    remat: bool = True):
+        """Depth units [lo, hi) over hidden states x -> (x, aux); each
+        unit rematerialized unless ``remat`` is off
+        (``common.maybe_checkpoint``)."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            return zamba2.apply_group_range(params, cfg, x, lo, hi)
+            return zamba2.apply_group_range(params, cfg, x, lo, hi,
+                                            remat=remat)
         if cfg.family == "ssm":
-            return self.module.apply_layer_range(params, cfg, x, lo, hi)
+            return self.module.apply_layer_range(params, cfg, x, lo, hi,
+                                                 remat=remat)
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
                 "whisper's blocks run through core.blockwise's encoder / "
                 "decoder split")
-        return self.module.apply_unit_range(params, cfg, x, lo, hi)
+        return self.module.apply_unit_range(params, cfg, x, lo, hi,
+                                            remat=remat)
 
     def forward_hidden(self, params, tokens, **kw):
         return self.module.forward_hidden(params, self.cfg, tokens, **kw)

@@ -115,7 +115,8 @@ def decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     # q head g * rep + r reads KV head g; slots past cache_index are
     # unwritten (a ring buffer's are all written once cache_index >= S)
-    qf = q.float().reshape(B, Hkv, -1, hd) * (hd ** -0.5)
+    qf = whole_where_uneven(q.float(), 2, Hkv).reshape(B, Hkv, -1, hd) \
+        * (hd ** -0.5)
     logits = torch.einsum("bgrd,bkgd->bgrk", qf, cache_k.float())
     valid = torch.arange(S, device=x.device) < min(cache_index + 1, S)
     # the same on every rank: replicated for a DTensor run
@@ -136,9 +137,12 @@ def cross_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     S = enc_out.shape[1]
     hd = cfg.head_dim
     enc_out = enc_out.to(torch.promote_types(enc_out.dtype, p["wk"].dtype))
-    q = (x @ p["wq"]).reshape(B, T, cfg.num_heads, hd)
-    k = (enc_out @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (enc_out @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    q = whole_where_uneven(x @ p["wq"], -1, cfg.num_heads).reshape(
+        B, T, cfg.num_heads, hd)
+    k = whole_where_uneven(enc_out @ p["wk"], -1, cfg.num_kv_heads
+                           ).reshape(B, S, cfg.num_kv_heads, hd)
+    v = whole_where_uneven(enc_out @ p["wv"], -1, cfg.num_kv_heads
+                           ).reshape(B, S, cfg.num_kv_heads, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(1, 1, cfg.num_heads, hd)
     out = ops.attention(q, k, v, causal=False)

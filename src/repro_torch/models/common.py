@@ -61,6 +61,138 @@ def unroll_scans():
     yield
 
 
+# --------------------------------------------------------------------------
+# per-unit rematerialization
+# --------------------------------------------------------------------------
+# Perf knob: disable per-unit rematerialization (trades memory for ~25 %
+# less backward compute: viable when the step's live set is far under the
+# card's memory, e.g. FeDepth block steps).
+_NO_REMAT = False
+
+
+@contextlib.contextmanager
+def disable_remat():
+    """Run every :func:`maybe_checkpoint` body without rematerialization,
+    whatever its ``remat`` argument; nests, and restores on exit."""
+    global _NO_REMAT
+    old = _NO_REMAT
+    _NO_REMAT = True
+    try:
+        yield
+    finally:
+        _NO_REMAT = old
+
+
+def maybe_checkpoint(body, remat: bool):
+    """``body`` (a depth unit's forward: tensors and trees of tensors in,
+    a tuple out) rematerialized when ``remat`` is on and no
+    :func:`disable_remat` is active, else ``body`` itself (the reference's
+    ``jax.checkpoint``).  Rematerialized, the body keeps only its inputs
+    for the backward and runs its forward again there, K2–K4 launching
+    again.  Eagerly that is ``torch.utils.checkpoint.checkpoint(...,
+    use_reentrant=False)``, which composes with DTensor and the dry run's
+    ``meta`` tensors (the recompute's ops dispatch again, so a counting
+    mode sees them); under a functorch transform (the stacked path's
+    ``vmap``), where that checkpoint cannot run, :class:`_Recompute`.
+    Without grad mode (a frozen prefix, serving) the body runs as it is:
+    nothing is saved to rematerialize."""
+    if not remat or _NO_REMAT:
+        return body
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return _remat(body, args)
+
+    return run
+
+
+def _remat(fn, args):
+    """``fn(*args)`` rematerialized at the current functorch level:
+    ``torch.utils.checkpoint`` eagerly; :class:`_Recompute` beneath a
+    transform, or where a grad transform has disabled the saved-tensor
+    hooks that checkpoint needs."""
+    if (torch._C._functorch.maybe_current_level() is None
+            and torch._C._autograd._saved_tensors_hooks_is_enabled()):
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return _recompute(fn, args)
+
+
+class _Recompute(torch.autograd.Function):
+    """``call`` over flat tensors, rematerialized beneath a functorch
+    transform.  Its vmap rule (the stacked path: the loss vmapped over
+    the clients, then plain autograd) runs ``vmap(call)`` at the level
+    below, rematerialized there (:func:`_remat`): eagerly by checkpoint,
+    so the recompute runs the whole group's unit under plain autograd, as
+    the sequential path's does (a recompute under ``torch.func.vjp``
+    inside the vmapped backward held more at the peak: PERF.md §5).  Under a grad
+    transform (``torch.func.grad`` / ``vjp``) it saves only its inputs
+    and the backward runs the forward again under ``torch.func.vjp`` (the
+    kernels' Functions have ``setup_context`` and vmap rules, so they run
+    there)."""
+
+    @staticmethod
+    def forward(call, *flat):
+        return call(*flat)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.call = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = ctx.saved_tensors
+        need = [i for i, t in enumerate(flat)
+                if ctx.needs_input_grad[i + 1]]
+
+        def part(*xs):
+            args = list(flat)
+            for i, x in zip(need, xs):
+                args[i] = x
+            return ctx.call(*args)
+
+        _, vjp = torch.func.vjp(part, *(flat[i] for i in need))
+        out = [None] * len(flat)
+        for i, g in zip(need, vjp(grads)):
+            out[i] = g
+        return (None, *out)
+
+    @staticmethod
+    def vmap(info, in_dims, call, *flat):
+        out = _remat(torch.func.vmap(call, in_dims=in_dims[1:],
+                                     randomness=info.randomness), flat)
+        return out, (0,) * len(out)
+
+
+def _recompute(body, args):
+    """``body(*args)`` through :class:`_Recompute`: the tensors of
+    ``args`` are its inputs, the rest of ``args`` and of the outputs (a
+    Python float aux) held fixed."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    leaves, spec = tree_flatten(args)
+    pos = [i for i, t in enumerate(leaves) if isinstance(t, torch.Tensor)]
+    out_spec, fixed = [], {}
+
+    def call(*flat):
+        full = list(leaves)
+        for i, t in zip(pos, flat):
+            full[i] = t
+        outs, ospec = tree_flatten(body(*tree_unflatten(full, spec)))
+        out_spec[:] = [ospec]
+        fixed.clear()
+        fixed.update({i: o for i, o in enumerate(outs)
+                      if not isinstance(o, torch.Tensor)})
+        return tuple(o for o in outs if isinstance(o, torch.Tensor))
+
+    ts = iter(_Recompute.apply(call, *(leaves[i] for i in pos)))
+    n = out_spec[0].num_leaves
+    outs = [fixed[i] if i in fixed else next(ts) for i in range(n)]
+    return tree_unflatten(outs, out_spec[0])
+
+
 # Weight-stationary decode: at decode the batch is tiny and FSDP-sharded
 # weights dominate; this mode pins decode activations replicated at the
 # matmuls (gathering activations instead of weights), resharding to
@@ -239,10 +371,12 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
                          f"head_dim / 2 = {D // 2}")
     freqs = rope_freqs(D, theta, x.device)                  # (D/2,)
-    axis_of_slot = torch.cat([torch.full((s,), i, device=x.device)
-                              for i, s in enumerate(sections)])
-    pos_bt3 = positions.movedim(0, -1).float()              # (B, T, 3)
-    angles = pos_bt3[..., axis_of_slot] * freqs             # (B, T, D/2)
+    # each slot's axis position, by slices and no index tensor (a DTensor
+    # cannot be indexed by a plain one)
+    pos = positions.float()
+    angles = torch.cat([pos[i, ..., None].expand(*pos.shape[1:], s)
+                        for i, s in enumerate(sections)], dim=-1) \
+        * replicate_like(freqs, pos)                        # (B, T, D/2)
     cos = replicate_like(torch.cos(angles)[:, :, None, :], x)
     sin = replicate_like(torch.sin(angles)[:, :, None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -39,16 +39,24 @@ def init(cfg: ModelConfig, *, generator: torch.Generator, device,
 
 
 def apply_layer_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
-                      hi: int) -> Tuple[torch.Tensor, float]:
-    """Residual layers [lo, hi) over hidden states x; no auxiliary loss."""
+                      hi: int, *, remat: bool = True
+                      ) -> Tuple[torch.Tensor, float]:
+    """Residual layers [lo, hi) over hidden states x; no auxiliary loss.
+    With ``remat`` each layer is one rematerialized body."""
+    def layer_body(x, lp):
+        return x + mamba2.forward(lp, cfg, x)[0]
+
+    body = common.maybe_checkpoint(layer_body, remat)
     for lp in p["layers"][lo:hi]:
-        x = x + mamba2.forward(lp, cfg, x)[0]
+        x = body(x, lp)
     return x, 0.0
 
 
-def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   remat: bool = True):
     """Embeddings -> every layer -> hidden states (pre final-norm)."""
-    return apply_layer_range(p, cfg, p["embed"][tokens], 0, cfg.num_layers)
+    return apply_layer_range(p, cfg, p["embed"][tokens], 0, cfg.num_layers,
+                             remat=remat)
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -63,7 +71,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def prefill(p: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     """The prompt's forward: last-position logits (B, 1, V)."""
-    x, _ = forward_hidden(p, cfg, batch["tokens"])
+    x, _ = forward_hidden(p, cfg, batch["tokens"], remat=False)
     x = common.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
     return x @ common.head_weight(p, cfg)
 

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dtensor import replicate_like
 from repro_torch.models import common
 
 
@@ -53,8 +54,10 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device,
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """``F.one_hot(idx, n)`` (int64) without its range check, which reads
     the indices on the host and so cannot run under ``vmap`` (the stacked
-    FeDepth path); the indices come from a sort over n experts."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+    FeDepth path); the indices come from a sort over n experts.  On a
+    DTensor the expert ids are replicated onto its mesh."""
+    ids = replicate_like(torch.arange(n, device=idx.device), idx)
+    return (idx[..., None] == ids).long()
 
 
 def router_probs(logits: torch.Tensor, k: int
@@ -117,8 +120,9 @@ def forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     xr = xt.repeat_interleave(K, dim=0) * keep[:, None].to(x.dtype)
     xr = common.shard_hint(xr, "data", None)
-    expert_in = torch.zeros(E * C, D, dtype=x.dtype, device=x.device
-                            ).index_add(0, slot, xr).reshape(E, C, D)
+    expert_in = replicate_like(torch.zeros(
+        E * C, D, dtype=x.dtype, device=x.device), xr).index_add(
+            0, slot, xr).reshape(E, C, D)
     # pin the expert-parallel layout: expert axis on "model"
     expert_in = common.shard_hint(expert_in, "model", None, None)
     h = F.silu(torch.bmm(expert_in, p["w_gate"])) \

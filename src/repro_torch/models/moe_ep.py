@@ -91,7 +91,11 @@ def _expert_queues(recv_x, recv_e, wg, wu, wd):
     eidx = (recv_e - 1).clamp(min=0)
     oh = _one_hot(eidx, E_loc) * valid[:, None]                # (M*C, E_loc)
     qpos = oh.cumsum(0).gather(1, eidx[:, None])[:, 0] - 1
-    cap = max(1, int(oh.sum(0).max()))          # the longest queue
+    # the longest queue; on ``meta`` (the dry run) no count can be read,
+    # and a queue takes every slot, as the reference's dense dispatch
+    # over (E_loc, M*C, D)
+    cap = (recv_x.shape[0] if recv_x.device.type == "meta"
+           else max(1, int(oh.sum(0).max())))
     # an empty slot goes to a spare row past the queues
     qidx = torch.where(valid, eidx * cap + qpos,
                        torch.full_like(eidx, E_loc * cap))

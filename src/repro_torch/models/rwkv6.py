@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dtensor import whole_where_uneven
 from repro_torch.kernels import ops
 from repro_torch.models import common
 
@@ -98,18 +99,24 @@ def _time_mix(lp: Params, cfg: ModelConfig, x: torch.Tensor, state=None,
     H = d // hd
     xs = _token_shift(x, shift)
     base = xs + (x - xs) * 0.5  # anchor of the data-dependent mix
-    lora = torch.tanh(base @ lp["mix_lora_a"]).reshape(B, T, 5, LORA_R)
+    # a DTensor's 5 mixes and H heads split evenly over the mesh, or not
+    # at all (DTensor has no rule for an uneven unflatten)
+    lora = whole_where_uneven(torch.tanh(base @ lp["mix_lora_a"]), -1,
+                              5).reshape(B, T, 5, LORA_R)
     dyn = torch.einsum("btfr,frd->btfd", lora, lp["mix_lora_b"])
     mixed = xs[:, :, None, :] + (x - xs)[:, :, None, :] * \
         (lp["mix"][None, None] + dyn)                       # (B, T, 5, d)
     mr, mk, mv, mg, mw = mixed.unbind(dim=2)
 
-    r = (mr @ lp["wr"]).reshape(B, T, H, hd)
-    k = (mk @ lp["wk"]).reshape(B, T, H, hd)
-    v = (mv @ lp["wv"]).reshape(B, T, H, hd)
+    def heads(t):
+        return whole_where_uneven(t, -1, H).reshape(B, T, H, hd)
+
+    r = heads(mr @ lp["wr"])
+    k = heads(mk @ lp["wk"])
+    v = heads(mv @ lp["wv"])
     g = F.silu(mg @ lp["wg"])
-    w = (lp["w_base"] + torch.tanh(mw @ lp["w_lora_a"]) @ lp["w_lora_b"]
-         ).reshape(B, T, H, hd)
+    w = heads(lp["w_base"] + torch.tanh(mw @ lp["w_lora_a"])
+              @ lp["w_lora_b"])
 
     y, new_state = ops.rwkv6(r, k, v, w, lp["bonus_u"], state)
     # per-head group norm, population variance (as jnp.var)
@@ -144,16 +151,24 @@ def _layer_forward(lp: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def apply_layer_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
-                      hi: int) -> Tuple[torch.Tensor, float]:
-    """Layers [lo, hi) over hidden states x; no auxiliary loss."""
+                      hi: int, *, remat: bool = True
+                      ) -> Tuple[torch.Tensor, float]:
+    """Layers [lo, hi) over hidden states x; no auxiliary loss.  With
+    ``remat`` each layer is one rematerialized body."""
+    def layer_body(x, lp):
+        return _layer_forward(lp, cfg, x)[0]
+
+    body = common.maybe_checkpoint(layer_body, remat)
     for lp in p["layers"][lo:hi]:
-        x = _layer_forward(lp, cfg, x)[0]
+        x = body(x, lp)
     return x, 0.0
 
 
-def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   remat: bool = True):
     """Embeddings -> every layer -> hidden states (pre final-norm)."""
-    return apply_layer_range(p, cfg, p["embed"][tokens], 0, cfg.num_layers)
+    return apply_layer_range(p, cfg, p["embed"][tokens], 0, cfg.num_layers,
+                             remat=remat)
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -167,7 +182,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def prefill(p: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     """The prompt's forward: last-position logits (B, 1, V)."""
-    x, _ = forward_hidden(p, cfg, batch["tokens"])
+    x, _ = forward_hidden(p, cfg, batch["tokens"], remat=False)
     x = common.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
     return x @ common.head_weight(p, cfg)
 

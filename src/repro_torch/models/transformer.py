@@ -113,22 +113,29 @@ def _layer_forward(layer: Params, cfg: ModelConfig, kind: str, x,
 
 
 def apply_unit_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
-                     hi: int, *, mrope_positions=None
+                     hi: int, *, mrope_positions=None, remat: bool = True
                      ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """Run units [lo, hi) over hidden states x at positions 0..T-1.
-    Returns (x, the summed MoE aux loss; 0.0 when no layer is MoE).  No
-    per-unit rematerialization: a FeDepth block step keeps one block's
-    activations, far below the card's memory at the slice's shapes."""
+    Returns (x, the summed MoE aux loss; 0.0 when no layer is MoE).  With
+    ``remat`` (training's default) each unit, all its ``moe_every``
+    layers and their aux, is one rematerialized body
+    (``common.maybe_checkpoint``), as the reference's scan body."""
     kinds = cfg.layer_kinds()
     positions = common.causal_positions(x.shape[0], x.shape[1],
                                         device=x.device)
-    aux = 0.0
-    for unit in p["units"][lo:hi]:
+
+    def unit_body(x, aux, unit, positions, mrope_positions):
         for i, layer in enumerate(_sublayers(unit, cfg)):
             x, a = _layer_forward(layer, cfg, kinds[i],
                                   common.batch_hint(x), positions,
                                   mrope_positions)
             aux = aux + a
+        return x, aux
+
+    body = common.maybe_checkpoint(unit_body, remat)
+    aux = 0.0
+    for unit in p["units"][lo:hi]:
+        x, aux = body(x, aux, unit, positions, mrope_positions)
     return x, aux
 
 
@@ -154,7 +161,8 @@ def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-                   vision_embeds=None, mrope_positions=None):
+                   vision_embeds=None, mrope_positions=None,
+                   remat: bool = True):
     """Embeddings (after the vision prefix, if any) -> every unit ->
     hidden states (pre final-norm).  With both a vision prefix of P
     tokens and text ``mrope_positions`` (3, B, T), the prefix takes the
@@ -163,17 +171,19 @@ def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = embed_inputs(p, cfg, tokens, vision_embeds=vision_embeds)
     if mrope_positions is not None and vision_embeds is not None:
         P = vision_embeds.shape[1]
-        vis = torch.arange(P, dtype=mrope_positions.dtype,
-                           device=x.device).expand(3, x.shape[0], P)
+        vis = common.replicate_like(torch.arange(
+            P, dtype=mrope_positions.dtype, device=x.device).expand(
+                3, x.shape[0], P), mrope_positions)
         mrope_positions = torch.cat([vis, mrope_positions + P], dim=2)
     return apply_unit_range(p, cfg, x, 0, cfg.num_layers // cfg.moe_every,
-                            mrope_positions=mrope_positions)
+                            mrope_positions=mrope_positions, remat=remat)
 
 
-def _forward_batch(p: Params, cfg: ModelConfig, batch):
+def _forward_batch(p: Params, cfg: ModelConfig, batch, remat: bool = True):
     return forward_hidden(p, cfg, batch["tokens"],
                           vision_embeds=batch.get("vision_embeds"),
-                          mrope_positions=batch.get("mrope_positions"))
+                          mrope_positions=batch.get("mrope_positions"),
+                          remat=remat)
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -193,7 +203,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def prefill(p: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     """The prompt's forward: last-position logits (B, 1, V)."""
-    x, _ = _forward_batch(p, cfg, batch)
+    x, _ = _forward_batch(p, cfg, batch, remat=False)
     x = common.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
     return x @ common.head_weight(p, cfg)
 

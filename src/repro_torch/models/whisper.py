@@ -97,36 +97,48 @@ def embed_frames(p: Params, encoder_embeds: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
-                  hi: int) -> torch.Tensor:
+                  hi: int, *, remat: bool = True) -> torch.Tensor:
     """Encoder layers [lo, hi) over x (positions already added), then
-    ``enc_norm`` when the range ends at the encoder's last layer."""
-    for lp in p["enc_layers"][lo:hi]:
+    ``enc_norm`` when the range ends at the encoder's last layer.  With
+    ``remat`` each layer is one rematerialized body."""
+    def layer_body(x, lp):
         h = ln(x, lp["ln1"], cfg.norm_eps)
         x = x + attention.forward(lp["attn"], cfg, h, None, causal=False)
-        x = x + mlp(ln(x, lp["ln2"], cfg.norm_eps), lp["mlp"])
+        return x + mlp(ln(x, lp["ln2"], cfg.norm_eps), lp["mlp"])
+
+    body = common.maybe_checkpoint(layer_body, remat)
+    for lp in p["enc_layers"][lo:hi]:
+        x = body(x, lp)
     if hi == cfg.encoder_layers:
         x = ln(x, p["enc_norm"], cfg.norm_eps)
     return x
 
 
 def encode(p: Params, cfg: ModelConfig, encoder_embeds: torch.Tensor, *,
-           lo: int = 0, hi: Optional[int] = None) -> torch.Tensor:
+           lo: int = 0, hi: Optional[int] = None,
+           remat: bool = True) -> torch.Tensor:
     """The encoder stack over stubbed frame embeddings (positions added
     here)."""
     hi = hi if hi is not None else cfg.encoder_layers
-    return encoder_range(p, cfg, embed_frames(p, encoder_embeds), lo, hi)
+    return encoder_range(p, cfg, embed_frames(p, encoder_embeds), lo, hi,
+                         remat=remat)
 
 
 def apply_decoder_range(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                        enc_out: torch.Tensor, lo: int,
-                        hi: int) -> torch.Tensor:
-    """Decoder layers [lo, hi) over x, attending to ``enc_out``."""
-    for lp in p["dec_layers"][lo:hi]:
+                        enc_out: torch.Tensor, lo: int, hi: int, *,
+                        remat: bool = True) -> torch.Tensor:
+    """Decoder layers [lo, hi) over x, attending to ``enc_out``.  With
+    ``remat`` each layer is one rematerialized body."""
+    def layer_body(x, lp, enc_out):
         h = ln(x, lp["ln1"], cfg.norm_eps)
         x = x + attention.forward(lp["self_attn"], cfg, h, None)
         h = ln(x, lp["ln2"], cfg.norm_eps)
         x = x + attention.cross_forward(lp["cross_attn"], cfg, h, enc_out)
-        x = x + mlp(ln(x, lp["ln3"], cfg.norm_eps), lp["mlp"])
+        return x + mlp(ln(x, lp["ln3"], cfg.norm_eps), lp["mlp"])
+
+    body = common.maybe_checkpoint(layer_body, remat)
+    for lp in p["dec_layers"][lo:hi]:
+        x = body(x, lp, enc_out)
     return x
 
 
@@ -136,12 +148,12 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-                   encoder_embeds: torch.Tensor):
+                   encoder_embeds: torch.Tensor, remat: bool = True):
     """Encoder, then every decoder layer -> decoder hidden states (pre
     ``dec_norm``) and aux = 0."""
-    enc_out = encode(p, cfg, encoder_embeds)
+    enc_out = encode(p, cfg, encoder_embeds, remat=remat)
     x = apply_decoder_range(p, cfg, embed_tokens(p, tokens), enc_out, 0,
-                            cfg.num_layers)
+                            cfg.num_layers, remat=remat)
     return x, 0.0
 
 
@@ -159,7 +171,8 @@ def prefill(p: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     """The prompt's forward over its frames: last-position logits (B, 1,
     V)."""
     x, _ = forward_hidden(p, cfg, batch["tokens"],
-                          encoder_embeds=batch["encoder_embeds"])
+                          encoder_embeds=batch["encoder_embeds"],
+                          remat=False)
     x = ln(x[:, -1:], p["dec_norm"], cfg.norm_eps)
     return x @ p["embed"].T
 

@@ -79,23 +79,35 @@ def _shared_block(p: Params, cfg: ModelConfig, x: torch.Tensor, g: int,
 
 
 def apply_group_range(p: Params, cfg: ModelConfig, x: torch.Tensor, lo: int,
-                      hi: int) -> Tuple[torch.Tensor, float]:
+                      hi: int, *, remat: bool = True
+                      ) -> Tuple[torch.Tensor, float]:
     """Run groups [lo, hi) over hidden states x at positions 0..T-1: each
     group's mamba layers (residual), then the shared block.  Returns (x,
-    aux = 0)."""
+    aux = 0).  With ``remat`` each group, its shared-block invocation
+    included, is one rematerialized body (the reference rematerializes
+    each mamba layer and keeps the shared block's activations; a group
+    is the unit FeDepth splits at, and its recompute runs K2 again)."""
     positions = common.causal_positions(x.shape[0], x.shape[1],
                                         device=x.device)
-    for g in range(lo, hi):
-        for lp in p["mamba_groups"][g]:
+
+    def group_body(x, layers, shared, g, positions):
+        for lp in layers:
             x = x + mamba2.forward(lp, cfg, x)[0]
-        x = _shared_block(p, cfg, x, g, positions)
+        return _shared_block(shared, cfg, x, g, positions)
+
+    body = common.maybe_checkpoint(group_body, remat)
+    shared = {"shared": p["shared"],
+              "invocation_norms": p["invocation_norms"]}
+    for g in range(lo, hi):
+        x = body(x, p["mamba_groups"][g], shared, g, positions)
     return x, 0.0
 
 
-def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def forward_hidden(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   remat: bool = True):
     """Embeddings -> every group -> hidden states (pre final-norm)."""
     return apply_group_range(p, cfg, p["embed"][tokens], 0,
-                             group_layout(cfg)[0])
+                             group_layout(cfg)[0], remat=remat)
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -109,7 +121,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def prefill(p: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     """The prompt's forward: last-position logits (B, 1, V)."""
-    x, _ = forward_hidden(p, cfg, batch["tokens"])
+    x, _ = forward_hidden(p, cfg, batch["tokens"], remat=False)
     x = common.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
     return x @ p["lm_head"]
 

@@ -77,10 +77,15 @@ class DeviceCounts(TorchDispatchMode):
     ``collectives`` ({kind: result bytes}).  A DTensor op is handed back
     (``NotImplemented``): DTensor propagates its sharding and runs the
     local op, which comes back here on plain tensors.  The ops DTensor
-    runs on fake tensors to derive global shapes are not counted."""
+    runs on fake tensors to derive global shapes are not counted.  With
+    ``host_ops=False`` (the dry run, whose device tensors are ``meta``)
+    neither is an op whose tensors all lie on the CPU: DTensor's
+    bookkeeping of shard sizes and offsets, which its first propagation
+    of an op runs and a cached one skips."""
 
-    def __init__(self):
+    def __init__(self, host_ops: bool = True):
         super().__init__()
+        self.host_ops = host_ops
         self.flops = 0.0
         self.bytes = 0.0
         self.collectives: Dict[str, int] = {}
@@ -96,6 +101,9 @@ class DeviceCounts(TorchDispatchMode):
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         if any(isinstance(t, FakeTensor) for t in ins + outs):
             return out          # DTensor's shape propagation
+        if not self.host_ops and all(t.device.type == "cpu"
+                                     for t in ins + outs):
+            return out          # DTensor's host bookkeeping
         kind = _collective_kind(func)
         if kind is not None:
             self.collectives[kind] = self.collectives.get(kind, 0) \

@@ -88,9 +88,9 @@ def _mesh22():
     return make_host_mesh(2, device_type="cpu")
 
 
-def _train_steps(mesh, params_ref, batch_np, lr):
+def _train_steps(mesh, params_ref, batch_np, lr, cases=STEP_CASES):
     """The reduced yi-6b step on DTensor parameters laid out by
-    ``param_specs`` for each of STEP_CASES; parameters and momentum in
+    ``param_specs`` for each of ``cases``; parameters and momentum in
     the reference's layout."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.base import InputShape
@@ -106,7 +106,7 @@ def _train_steps(mesh, params_ref, batch_np, lr):
     B, T = batch_np["tokens"].shape
     bspecs = sharding.batch_specs(cfg, InputShape("t", T, B, "train"), mesh)
     out = {}
-    for fsdp, accum in STEP_CASES:
+    for fsdp, accum in cases:
         specs = sharding.param_specs(cfg, params, mesh, fsdp=fsdp)
         p = sharding.distribute(params, specs, mesh)
         v = sharding.distribute(tree_map(torch.zeros_like, params), specs,
@@ -130,6 +130,28 @@ def _train_steps(mesh, params_ref, batch_np, lr):
             "loss": float(m["loss"].full_tensor()),
             "gnorm": float(m["gnorm"].full_tensor())}
     return out
+
+
+def _remat_steps(mesh, params_ref, batch_np, lr):
+    """The fsdp step of :func:`_train_steps` with per-unit
+    rematerialization (the default) and under ``disable_remat()``, and
+    the number of ``torch.utils.checkpoint`` calls the first made."""
+    import torch.utils.checkpoint as ckpt
+    from repro_torch.models import common
+    calls, checkpoint = [0], ckpt.checkpoint
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return checkpoint(*a, **kw)
+
+    ckpt.checkpoint = counted
+    try:
+        on = _train_steps(mesh, params_ref, batch_np, lr, ((True, 1),))
+    finally:
+        ckpt.checkpoint = checkpoint
+    with common.disable_remat():
+        off = _train_steps(mesh, params_ref, batch_np, lr, ((True, 1),))
+    return {"on": on[True, 1], "off": off[True, 1], "checkpoints": calls[0]}
 
 
 def _moe_params(inputs, arch):
@@ -287,11 +309,12 @@ def _sharded_kernels(mesh):
 def sharded_suite(rank: int, world: int, params_ref, batch_np, lr,
                   moe_inputs):
     """Every sharded check of ``tests/test_torch_dist.py`` on a ("data",
-    "model") mesh of (2, 2): the train steps, ``forward_ep`` and the
-    kernel ops' sharded route."""
+    "model") mesh of (2, 2): the train steps (also with remat off),
+    ``forward_ep`` and the kernel ops' sharded route."""
     assert world == 4, world
     mesh = _mesh22()
     return {"steps": _train_steps(mesh, params_ref, batch_np, lr),
+            "remat": _remat_steps(mesh, params_ref, batch_np, lr),
             "forward_ep": _forward_ep(mesh, moe_inputs),
             "kernels": _sharded_kernels(mesh)}
 

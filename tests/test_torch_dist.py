@@ -5,7 +5,9 @@ ranks on the CPU, spawned once for the whole file
 * The reduced yi-6b train step on DTensor parameters laid out by
   ``param_specs``, fsdp off and on, at accumulation 1 and 2 (the latter
   under ``microbatch_shardings``), against the reference's jitted step
-  from the same converted parameters: atol 1e-5.
+  from the same converted parameters: atol 1e-5.  Each runs with
+  per-unit rematerialization, as training does; the fsdp step also under
+  ``disable_remat()``, equal within the same atol.
 * ``moe_ep.forward_ep`` on reduced qwen3-moe and llama4 at capacity
   factors 8 and 1.25 against the reference's ``forward_ep`` on a forced
   4-device (2, 2) mesh (one JAX subprocess, run beside the ranks), which
@@ -160,6 +162,22 @@ def test_sharded_train_step_matches_reference(runs, ref_steps, fsdp, accum):
     assert_trees_close(port["params"], p, f"fsdp={fsdp} accum={accum}",
                        atol=1e-5, rtol=0)
     assert_trees_close(port["momentum"], v, f"fsdp={fsdp} accum={accum}",
+                       atol=1e-5, rtol=0)
+
+
+def test_sharded_step_remat_equals_no_remat(runs):
+    """The fsdp step with each unit rematerialized through
+    ``torch.utils.checkpoint`` over DTensor parameters (its recompute
+    re-runs the layers' collectives) equals the step under
+    ``disable_remat()``."""
+    rec = runs[0]["remat"]
+    assert rec["checkpoints"] > 0
+    on, off = rec["on"], rec["off"]
+    assert abs(on["loss"] - off["loss"]) <= 1e-5
+    assert abs(on["gnorm"] - off["gnorm"]) <= 1e-5 * max(1.0, off["gnorm"])
+    assert_trees_close(on["params"], off["params"], "remat params",
+                       atol=1e-5, rtol=0)
+    assert_trees_close(on["momentum"], off["momentum"], "remat momentum",
                        atol=1e-5, rtol=0)
 
 
